@@ -1,4 +1,5 @@
-"""JAX param pytree -> the port's parameters.
+"""JAX param pytree (and train state) -> the port's parameters (and
+train state).
 
 The JAX package keeps parameters as nested dicts (wavenet_speech_tpu/
 models/*.py ``init``); the port keeps the same layout per tensor (conv
@@ -76,10 +77,43 @@ def classifier_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
             **_dense(p["out1"], "out1."), **_dense(p["out2"], "out2.")}
 
 
+def param_tree_from_jax(tree: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The train step's params tree {"base": WaveNet state dict, "ctc":
+    WaveNetClassifier state dict} from JAX params {"base": ..., "ctc": ...}."""
+    return {"base": wavenet_from_jax(tree["base"]),
+            "ctc": classifier_from_jax(tree["ctc"])}
+
+
 def params_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
     """State dict of ``facade.Model("wavenet-ctc")`` from the JAX facade's
     params {"base": WaveNet params, "ctc": WaveNetClassifier params}."""
-    base = wavenet_from_jax(tree["base"])
-    ctc = classifier_from_jax(tree["ctc"])
-    return {**{f"model_base.{k}": v for k, v in base.items()},
-            **{f"model_ctc.{k}": v for k, v in ctc.items()}}
+    p = param_tree_from_jax(tree)
+    return {**{f"model_base.{k}": v for k, v in p["base"].items()},
+            **{f"model_ctc.{k}": v for k, v in p["ctc"].items()}}
+
+
+def _opt_state_from_jax(s):
+    """An optax state -> the port's (training/optimizer.py): a chain's tuple
+    stays a tuple, a state NamedTuple becomes a dict of its fields, a
+    param-shaped tree is bridged like the params, a scalar (a count)
+    becomes a tensor."""
+    if hasattr(s, "_fields"):
+        return {f: _opt_state_from_jax(getattr(s, f)) for f in s._fields}
+    if isinstance(s, (tuple, list)):
+        return tuple(_opt_state_from_jax(v) for v in s)
+    if isinstance(s, dict):
+        return param_tree_from_jax(s)
+    return torch.from_numpy(np.array(s))
+
+
+def train_state_from_jax(state):
+    """A JAX ``training.TrainState`` (params {"base", "ctc"}, the optax
+    state of ``build_optimizer``, step) as the port's ``TrainState``, on the
+    CPU: a JAX run resumes in the port. Covers every rule of
+    ``build_optimizer``: adagrad's sum_of_squares, adam/adamw/adamax's mu,
+    nu and count, rmsprop's nu, a schedule's count."""
+    from wavenet_speech_tpu_torch.training.trainer import TrainState
+
+    return TrainState(params=param_tree_from_jax(state.params),
+                      opt_state=_opt_state_from_jax(state.opt_state),
+                      step=torch.from_numpy(np.array(state.step, dtype=np.int32)))

@@ -39,93 +39,9 @@
 #include <stddef.h>
 
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
-
-constexpr int NT = 256;  // threads per block
-constexpr int KC = 16;   // reduction depth per shared-memory stage
-// Thread layout of a tile of TL rows: RG row groups of 4 rows by CG channel
-// groups of 4 channels; CH channels a chunk; AS row stride of the transposed
-// (k, row) tiles; BS row stride of the weight tile (two halves of CH).
-constexpr int TL = 32;
-constexpr int RG = TL / 4;
-constexpr int CG = NT / RG;
-constexpr int CH = CG * 4;
-constexpr int AS = TL + 4;
-constexpr int BS = 2 * CH;
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
-// As[k][r] = x[t0 + r - shift][c0 + k] (zero outside [0, L) x [0, C_in)).
-__device__ __forceinline__ void load_x_tile(float* As, const float* __restrict__ xb,
-                                            int t0, int shift, int c0, int L, int C_in) {
-  if (threadIdx.x >= TL * (KC / 4)) return;
-  const int r = threadIdx.x >> 2;
-  const int cg = (threadIdx.x & 3) * 4;
-  const int t = t0 + r - shift;
-  const int c = c0 + cg;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (t >= 0 && t < L && c < C_in)
-    v = *reinterpret_cast<const float4*>(xb + (size_t)t * C_in + c);
-  As[(cg + 0) * AS + r] = v.x;
-  As[(cg + 1) * AS + r] = v.y;
-  As[(cg + 2) * AS + r] = v.z;
-  As[(cg + 3) * AS + r] = v.w;
-}
-
-// Bs[k][j] = w[k0 + k][col_a + j], Bs[k][CH + j] = w[k0 + k][col_b + j]
-// (second half only if TWO), for j < n_valid and k0 + k < k_max, else zero.
-template <bool TWO>
-__device__ __forceinline__ void load_w_tile(float* Bs, const float* __restrict__ w, int ld,
-                                            int k0, int k_max, int col_a, int col_b,
-                                            int n_valid) {
-  for (int i = threadIdx.x; i < KC * (CH / 4); i += NT) {
-    const int k = i / (CH / 4);
-    const int j = (i % (CH / 4)) * 4;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = a;
-    if (k0 + k < k_max && j < n_valid) {
-      const float* row = w + (size_t)(k0 + k) * ld;
-      a = *reinterpret_cast<const float4*>(row + col_a + j);
-      if (TWO) b = *reinterpret_cast<const float4*>(row + col_b + j);
-    }
-    *reinterpret_cast<float4*>(Bs + k * BS + j) = a;
-    *reinterpret_cast<float4*>(Bs + k * BS + CH + j) = b;
-  }
-}
-
-// acc0[i][j] += sum_k A[k][ty*4+i] * Bs[k][tx*4+j]; acc1 likewise with the
-// second half of Bs (if TWO). A is a transposed tile with row stride AS.
-template <bool TWO>
-__device__ __forceinline__ void tile_fma(float (&acc0)[4][4], float (&acc1)[4][4],
-                                         const float* A, const float* Bs, int tx, int ty) {
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(A + k * AS + ty * 4);
-    const float4 u = *reinterpret_cast<const float4*>(Bs + k * BS + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float uv[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc0[i][j] = fmaf(av[i], uv[j], acc0[i][j]);
-    if (TWO) {
-      const float4 v = *reinterpret_cast<const float4*>(Bs + k * BS + CH + tx * 4);
-      const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc1[i][j] = fmaf(av[i], vv[j], acc1[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
 
 size_t smem_bytes(int C) {
   const int Cp = (C + CH - 1) / CH * CH;
@@ -163,8 +79,8 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int shift = (K - 1 - tap) * dilation;
       const float* w_tap = gate_w + (size_t)tap * C_in * C2;
       for (int c0 = 0; c0 < C_in; c0 += KC) {
-        load_x_tile(As, xb, t0, shift, c0, L, C_in);
-        load_w_tile<true>(Bs, w_tap, C2, c0, C_in, p0, C + p0, C - p0);
+        load_rows_t(As, xb, xb, C_in, t0 - shift, c0, L, C_in);
+        load_w_tile<true>(Bs, w_tap, C2, c0, C_in, p0, C + p0, C - p0, C - p0);
         __syncthreads();
         tile_fma<true>(acc0, acc1, As, Bs, tx, ty);
         __syncthreads();
@@ -192,14 +108,14 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
     zero(acc1);  // act @ out_w[:, C+q0:C+q0+CH]      (skip half)
     zero(acc2);  // x @ res_w[:, q0:q0+CH]
     for (int k0 = 0; k0 < C; k0 += KC) {
-      load_w_tile<true>(Bs, out_w, C2, k0, C, q0, C + q0, C - q0);
+      load_w_tile<true>(Bs, out_w, C2, k0, C, q0, C + q0, C - q0, C - q0);
       __syncthreads();
       tile_fma<true>(acc0, acc1, actT + k0 * AS, Bs, tx, ty);
       __syncthreads();
     }
     for (int c0 = 0; c0 < C_in; c0 += KC) {
-      load_x_tile(As, xb, t0, 0, c0, L, C_in);
-      load_w_tile<false>(Bs, res_w, C, c0, C_in, q0, 0, C - q0);
+      load_rows_t(As, xb, xb, C_in, t0, c0, L, C_in);
+      load_w_tile<false>(Bs, res_w, C, c0, C_in, q0, 0, C - q0, 0);
       __syncthreads();
       tile_fma<false>(acc2, acc2, As, Bs, tx, ty);
       __syncthreads();

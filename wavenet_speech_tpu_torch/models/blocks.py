@@ -8,8 +8,9 @@ Parameters keep the JAX layout and names: ``gate_w`` (K, C_in, 2C),
 ``gate_b`` (2C,), ``out_w`` (1, C, 2C), ``out_b`` (2C,), ``res_w``
 (C_in, C), ``res_b`` (C,).
 
-Causal blocks (WaveNet's) run the fused block ``ops.fused_block``: its CUDA
-kernel on the card, its plain version on the CPU. Non-causal blocks (the
+Causal blocks (WaveNet's) run the fused block ``ops.fused_block``: on the
+card its forward and backward kernels (an autograd Function), on the CPU
+its plain version, which autograd differentiates. Non-causal blocks (the
 classifier's) run the composite below, as in JAX, whose kernel is causal
 only.
 """

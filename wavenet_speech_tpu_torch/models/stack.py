@@ -4,8 +4,9 @@ WaveNetClassifier.
 
 The blocks are unrolled: PyTorch runs eagerly and has no scan, so the JAX
 package's cycle-stacked parameter layout exists here only in the bridge
-(``bridge.params_from_jax``), which unstacks it. Remat does not matter for
-serving and is not ported.
+(``bridge.params_from_jax``), which unstacks it. The JAX ``remat`` option
+is not ported: on the card the causal block saves only its input and its
+backward kernel recomputes the gate, which is that remat inside the block.
 """
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ class WaveNet(nn.Module):
                  layers: Sequence[LayerSpec], out_dim: int,
                  softmax: bool = True, *, device=None):
         super().__init__()
+        self.in_dim = in_dim
         self.layers = tuple(tuple(l) for l in layers)
         self.softmax = softmax
         self.entry = CausalConv1d(in_dim, self.layers[0][0], entry_kwidth,

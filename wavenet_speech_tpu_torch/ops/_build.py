@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("fused_block", "ctc_beam")
+SOURCES = ("fused_block", "fused_block_bwd", "ctc", "ctc_beam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
