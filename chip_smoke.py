@@ -34,6 +34,30 @@ reads of L=4505):
      B2 1 a step) and holds their updates to the same cuDNN yardstick
      against 3 steps on the plain versions; checks a small model's 3
      steps against the CPU's; and times the step.
+  6. trains in bf16 (bench.py's default, compute_dtype=bf16) on the same
+     model and batch: holds the bf16 forms of B4 and B5 against their plain
+     bf16 versions at every dilation, on the inputs the bf16 forward and
+     backward feed them; at the port's init and with res_w scaled, holds
+     the bf16 kernel step's gradients to SENS_FACTOR times the bf16
+     cuDNN-composite step's distance from the plain bf16 step's, and
+     prints that gap by loss term and by part of the model; takes 3 bf16
+     steps counting launches (B4-bf16 30, B5-bf16 30, B1 1, B2 1, no
+     float32 block) with float32 params kept, holds their updates to the
+     same yardstick; times the bf16 step and its kernels. At full depth
+     these yardsticks cannot fail (the stack turns any flipped bf16
+     rounding into an O(1) gradient change), so with the depth cut to 3+2
+     blocks it holds the gradients and 3 steps' updates to
+     min(SENS_FACTOR x the cuDNN composite's, BF16_GRAD_RTOL), a bound that
+     zeroed causal-block gradients must fail; at 10+6 blocks it prints them.
+  7. runs the port's ``train`` entry point (cli.train_with_result) on the
+     model and training block of configs/ecoli_hdf5.json (256 channels,
+     15+15 blocks, bf16, Adam, length-aware CTC) on the pore datatype for
+     20 steps with checkpoints every 10 (written on a thread), then again
+     on the same run directory: it must resume at step 20 and count on to
+     40. Checks the logs, the checkpoints, finite losses, and that B4-bf16
+     ran 15 times a train step and a validation forward and B5-bf16 15
+     times a train step; then holds both bf16 kernels against their plain
+     versions at the loop's 15 blocks and its shape (L=1090).
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -42,17 +66,23 @@ the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from wavenet_speech_tpu_torch import cli
+from wavenet_speech_tpu_torch.data.prefetch import batch_to_device
 from wavenet_speech_tpu_torch.decoding import ctc_beam_device
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref, ctc_beam_search)
@@ -71,8 +101,12 @@ from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
-                                               make_joint_train_step, param_tree)
-from wavenet_speech_tpu_torch.training.trainer import all_finite, global_norm_safe
+                                               make_eval_step, make_joint_train_step,
+                                               param_tree)
+from wavenet_speech_tpu_torch.training.checkpoint import (save_checkpoint,
+                                                          wait_for_async_saves)
+from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
+                                                       global_norm_safe)
 from wavenet_speech_tpu_torch.utils.tree import tree_leaves
 
 SEED = 0
@@ -119,6 +153,25 @@ CTC_LIB_RTOL = 1e-4
 # steps with the causal blocks on the cuDNN composite: the gradients of the
 # untrained stack amplify f32 rounding even with res_w scaled (PERF.md)
 STEP_PARAM_RTOL = 1e-4
+# bf16 (phase 6): the kernels and their plain versions round the same float32
+# sums (taken in another order) to bf16, so an output may land one bf16 step
+# apart: |kernel - plain| <= BF16_STEP * |plain| + the float32 term above
+# (B4_ATOL, B5_WGRAD_ATOL x max|plain|); B4 also rounds act to bf16 before
+# the 1x1 product, where a flipped rounding of one act value moves an output
+# by one act step (<= 2^-8) times |out_w|: + 2 * 2^-8 * max|out_w|.
+BF16 = torch.bfloat16
+BF16_STEP = 2.0 ** -7
+PEAK_BF16_FLOPS = 989e12             # bf16 on the tensor cores, dense
+# At full depth the untrained stack turns a flipped bf16 rounding into a
+# gradient change as large as the gradient (PERF.md), so the bf16 gradients
+# and updates are held where the depth is cut to 3+2 blocks: within
+# SENS_FACTOR x the bf16 cuDNN composite's distance from the plain
+# versions', and within BF16_GRAD_RTOL, which zeroed causal-block gradients
+# exceed. At 10+6 blocks the gaps are printed, not held: how they grow.
+CUT_DEPTHS = ((([1, 2, 4], [1, 2]), True),
+              (([1, 2, 4, 8, 16, 32, 64, 128, 256, 512], [1, 2, 4, 8, 16, 32]), False))
+BF16_GRAD_RTOL = 0.1
+CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
 
 
 def log(*a):
@@ -309,12 +362,15 @@ def ctc_plain():
 
 def reset_counts():
     fused_gated_block.launches = fused_gated_block_bwd.launches = 0
+    fused_gated_block.launches_bf16 = fused_gated_block_bwd.launches_bf16 = 0
     ctc_fwd.launches = ctc_bwd.launches = beam_search_kernel.launches = 0
 
 
 def read_counts():
     return {"fused_gated_block": fused_gated_block.launches,
             "fused_gated_block_bwd": fused_gated_block_bwd.launches,
+            "fused_gated_block_bf16": fused_gated_block.launches_bf16,
+            "fused_gated_block_bwd_bf16": fused_gated_block_bwd.launches_bf16,
             "ctc_alpha": ctc_fwd.launches, "ctc_beta": ctc_bwd.launches,
             "ctc_beam": beam_search_kernel.launches}
 
@@ -351,14 +407,22 @@ def rel_err(a, b):
     return float(global_norm_safe([x - y for x, y in zip(a, b)]) / global_norm_safe(list(b)))
 
 
-def phase_grad_ratio(model, batch, label):
-    """The kernel step's gradients no farther from the plain step's than
-    SENS_FACTOR x the cuDNN-composite step's (as phase 3 for logits)."""
-    g_k = loss_grads(model, batch)
+def grad_sets(model, batch, grads):
+    """The gradients on the kernels, on their plain versions and on the
+    cuDNN composite (the last two with the plain CTC)."""
+    g_k = grads(model, batch)
     with causal_blocks_as(fused_gated_block_ref), ctc_plain():
-        g_p = loss_grads(model, batch)
+        g_p = grads(model, batch)
     with causal_blocks_as(cudnn_block), ctc_plain():
-        g_c = loss_grads(model, batch)
+        g_c = grads(model, batch)
+    return g_k, g_p, g_c
+
+
+def phase_grad_ratio(model, batch, label, grads=loss_grads):
+    """The kernel step's gradients no farther from the plain step's than
+    SENS_FACTOR x the cuDNN-composite step's (as phase 3 for logits).
+    Returns the three sets of gradients."""
+    g_k, g_p, g_c = grad_sets(model, batch, grads)
     k, c = rel_err(g_k, g_p), rel_err(g_c, g_p)
     log(f"{label}, gradients of the joint loss: ||g - g_plain|| / ||g_plain|| kernel "
         f"{k:.3e}, cuDNN composite {c:.3e}, ratio {k / c:.3f} (bound {SENS_FACTOR}); "
@@ -366,6 +430,7 @@ def phase_grad_ratio(model, batch, label):
     if not k <= SENS_FACTOR * c:
         raise AssertionError(f"{label}: kernel gradients' error {k:.3e} > "
                              f"{SENS_FACTOR} x the cuDNN step's {c:.3e}")
+    return g_k, g_p, g_c
 
 
 def capture_backward(model, batch):
@@ -621,10 +686,11 @@ def phase_train_small(dev):
         f"on the card equal the CPU's (losses {[round(h['total_loss'], 5) for h in hk]})")
 
 
-def time_training(model, step, tx, state, batch):
+def time_training(model, step, tx, state, batch, dtype=None):
     """Step ms and samples/s from CUDA events after a warm step; forward and
-    backward ms of the same objective; the skip guard's and the optimizer
-    update's ms on a tree of the params' shapes; peak memory of the steps."""
+    backward ms of the same objective (in dtype: None float32, or the
+    step's cast); the skip guard's and the optimizer update's ms on a tree
+    of the params' shapes; peak memory of the steps."""
     state, _ = step(state, batch)                      # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -640,11 +706,17 @@ def time_training(model, step, tx, state, batch):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     fwd = bwd = 0.0
     for _ in range(3):
+        params = list(model.parameters())
         ev[0].record()
-        loss, _ = joint_loss(model, batch)
+        if dtype is None:
+            loss, _ = joint_loss(model, batch)
+        else:
+            tree = model.params()
+            params = [p.requires_grad_(True) for p in tree_leaves(tree)]
+            loss, _, _ = _forward_losses(model.model_base, model.model_ctc, JointLoss("joint"),
+                                         tree, batch, None, dtype)
         ev[1].record()
-        torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
-                            materialize_grads=True)
+        torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         ev[2].record()
         torch.cuda.synchronize()
         fwd += ev[0].elapsed_time(ev[1]) / 3
@@ -653,8 +725,8 @@ def time_training(model, step, tx, state, batch):
     guard_ms = cuda_ms(lambda: (global_norm_safe(g), all_finite(g)), 3)
     update_ms = cuda_ms(lambda: tx.update(g, state.opt_state, g), 3)
     log(f"train_step_ms={step_ms:.3f} samples_per_s={B * L / step_ms * 1e3:.0f} "
-        f"(f32, B={B}, L={L}, S={S_LABELS}, Adagrad; mean of {n} steps after a warm "
-        f"step) forward_ms={fwd:.3f} backward_ms={bwd:.3f} skip_guard_ms={guard_ms:.3f} "
+        f"({'f32' if dtype is None else dtype}, B={B}, L={L}, S={S_LABELS}, Adagrad; mean of "
+        f"{n} steps after a warm step) forward_ms={fwd:.3f} backward_ms={bwd:.3f} skip_guard_ms={guard_ms:.3f} "
         f"optimizer_update_ms={update_ms:.3f} ({len(tree_leaves(g))} parameter tensors) "
         f"peak memory {peak / 2**30:.2f} GiB")
     return step_ms
@@ -677,6 +749,409 @@ def run_training(dev):
     phase_train_small(dev)
     time_training(model, step, tx, state, batch)
     return dict(b5=b5, b1=b1, b2=b2, launches=launches)
+
+
+# ---- 6. bf16 training ---------------------------------------------------------
+
+def step_grads(dtype, loss=None):
+    """Gradients of the train step's objective (loss, default the joint)
+    with respect to the float32 params, the models run in dtype through the
+    step's own cast."""
+    loss = loss or JointLoss("joint")
+
+    def grads(model, batch):
+        params = model.params()
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        total, _, _ = _forward_losses(model.model_base, model.model_ctc, loss, params, batch,
+                                      None, dtype)
+        return torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+    return grads
+
+
+def capture_blocks(model, batch, dtype, loss=None, logit_length_fn=None):
+    """The plain forward and backward of the train step's objective, the
+    models run in dtype through the step's cast: each causal block's input,
+    weights, dilation and output cotangents."""
+    rec = []
+
+    def recorder(x, *w_and_d):
+        r, s = fused_gated_block_ref(x, *w_and_d)
+        rec.append((x.detach(), [t.detach() for t in w_and_d[:-1]], w_and_d[-1], r, s))
+        return r, s
+
+    params = model.params()
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    with causal_blocks_as(recorder), ctc_plain():
+        total, _, _ = _forward_losses(model.model_base, model.model_ctc,
+                                      loss or JointLoss("joint"), params, batch,
+                                      logit_length_fn, dtype)
+        outs = [t for *_, r, s in rec for t in (r, s)]
+        cots = torch.autograd.grad(total, outs, allow_unused=True, materialize_grads=True)
+    return [(x, w, d, cots[2 * i], cots[2 * i + 1]) for i, (x, w, d, _, _) in enumerate(rec)]
+
+
+def check_bf16(name, d, got, want, extra):
+    """|got - want| <= BF16_STEP |want| + extra elementwise; returns the max
+    absolute error."""
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > BF16_STEP * want.float().abs() + extra).sum())
+    if bad:
+        raise AssertionError(f"{name} d={d}: {bad} elements beyond tolerance; max_abs_err "
+                             f"{float(diff.max()):.3e}, max|plain| {float(want.abs().max()):.3e}")
+    return float(diff.max())
+
+
+def check_bf16_block(x, fw, d, dr, ds):
+    """B4-bf16 and B5-bf16 against their plain bf16 versions on one block's
+    inputs and cotangents: bf16 out, each output within the bf16 tolerance.
+    Returns (B4's max abs error, B5's per output)."""
+    gw, gb, ow, ob, rw, rb = fw
+    got, want = fused_gated_block(x, *fw, d), fused_gated_block_ref(x, *fw, d)
+    if any(t.dtype != BF16 for t in got):
+        raise AssertionError(f"B4-bf16 d={d}: outputs {[t.dtype for t in got]}")
+    f_extra = B4_ATOL * max(float(w.abs().max()) for w in want) + \
+        2 * 2.0 ** -8 * float(ow.abs().max())
+    f_err = max(check_bf16("B4-bf16", d, g, w, f_extra) for g, w in zip(got, want))
+    gotb = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d)
+    wantb = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d)
+    if any(t.dtype != BF16 for t in gotb):
+        raise AssertionError(f"B5-bf16 d={d}: outputs {[t.dtype for t in gotb]}")
+    b_errs = [check_bf16(f"B5-bf16 {n}", d, g, w, (B4_ATOL if n == "dx" else B5_WGRAD_ATOL)
+                         * float(w.float().abs().max()))
+              for n, g, w in zip(B5_OUTPUTS, gotb, wantb)]
+    return f_err, b_errs
+
+
+def phase_bf16_kernels(blocks_io):
+    """B4-bf16 and B5-bf16 against their plain bf16 versions at each of the
+    30 dilations, on the inputs and cotangents of the bf16 forward and
+    backward; their times beside the plain versions' and the bf16 cuDNN
+    composite's (forward, and its autograd backward)."""
+    rows = []
+    for x, (gw, gb, ow, ob, rw, rb), d, dr, ds in blocks_io:
+        fw, bw = (gw, gb, ow, ob, rw, rb), (gw, gb, ow, rw)
+        f_err, b_errs = check_bf16_block(x, fw, d, dr, ds)
+        lib_bwd = cudnn_block_bwd(x, bw, d, dr, ds)
+        torch.cuda.synchronize()
+        rows.append(dict(
+            d=d, f_err=f_err, b_errs=b_errs,
+            f_ms=cuda_ms(lambda: fused_gated_block(x, *fw, d), 5),
+            f_plain_ms=cuda_ms(lambda: fused_gated_block_ref(x, *fw, d), 5),
+            f_lib_ms=cuda_ms(lambda: cudnn_block(x, *fw, d), 5),
+            b_ms=cuda_ms(lambda: fused_gated_block_bwd(x, *bw, dr, ds, d), 3),
+            b_plain_ms=cuda_ms(lambda: fused_gated_block_bwd_ref(x, *bw, dr, ds, d), 3),
+            b_lib_ms=cuda_ms(lib_bwd, 3)))
+    Bx, Lx, C_in = blocks_io[0][0].shape
+    K, _, C2 = blocks_io[0][1][0].shape
+    C = C2 // 2
+    n = Bx * Lx
+    w_in = K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C
+    # B4-bf16: every product is bf16 x bf16 (tensor cores); 2-byte tensors
+    f_flops = 2 * n * (K * C_in * C2 + C * C2 + C_in * C)
+    f_bytes = 2 * (n * C_in + 2 * n * C + w_in)
+    # B5-bf16: a product of two bf16-exact operands is exact in float32, so
+    # the tensor cores could take the gate recompute (x Wg), da (do Wo^T),
+    # dx's residual part (dresid Wr^T) and dWr (x^T dresid); dx's gate part
+    # (dg Wg^T), dWg (x^T dg) and dWo (act^T do) take a float32 operand
+    # (dg, act) and are float32 products in the TPU kernel's arithmetic
+    b_flops16 = 2 * n * (K * C_in * C2 + C2 * C + C * C_in + C_in * C)
+    b_flops32 = 2 * n * (K * C2 * C_in + K * C_in * C2 + C * C2)
+    b_bytes = 2 * (n * (C_in + 2 * C + C_in) + w_in + w_in)
+    out = {}
+    mean = lambda k: sum(r[k] for r in rows) / len(rows)
+    for key, name, ops_ms, nbytes, err, gflop in (
+            ("f", "B4-bf16 fused_gated_block_bf16", f_flops / PEAK_BF16_FLOPS * 1e3, f_bytes,
+             max(r["f_err"] for r in rows), f_flops / 1e9),
+            ("b", "B5-bf16 fused_gated_block_bwd_bf16",
+             (b_flops16 / PEAK_BF16_FLOPS + b_flops32 / PEAK_F32_FLOPS) * 1e3, b_bytes,
+             max(max(r["b_errs"]) for r in rows), (b_flops16 + b_flops32) / 1e9)):
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+        out[key] = dict(err=err, ms=mean(f"{key}_ms"), plain_ms=mean(f"{key}_plain_ms"),
+                        library_ms=mean(f"{key}_lib_ms"), bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{name}: 30 dilations within {BF16_STEP} x |plain| + the float32 term; "
+            f"max_abs_err={err:.3e}; kernel_ms={out[key]['ms']:.4f} "
+            f"plain_ms={out[key]['plain_ms']:.4f} library_ms={out[key]['library_ms']:.4f} "
+            f"(bf16 cuDNN composite{' autograd backward' if key == 'b' else ''}) "
+            f"bound_ms={bound_ms:.4f} ({bound_by}: {gflop:.2f} GFLOP -> {ops_ms:.4f} ms, "
+            f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms); mean over the 30 blocks")
+    for r in rows:
+        log(f"  bf16 d={r['d']:3d} B4 err {r['f_err']:.2e} ms {r['f_ms']:.4f} | B5 err "
+            + " ".join(f"{k}={e:.2e}" for k, e in zip(B5_OUTPUTS, r["b_errs"]))
+            + f" ms {r['b_ms']:.4f}")
+    return out
+
+
+def bf16_steps(model, batch):
+    """3 bf16 joint steps on the kernels (each step launches B4-bf16 and
+    B5-bf16 once a causal block, B1 and B2 once, no float32 block; params
+    and optimizer state stay float32), then on the plain versions and on
+    the bf16 cuDNN composite from the same state. Returns (step, tx, the
+    kernels' state, metrics, launches, the updates dp = p_3 - p_0 of the
+    three runs)."""
+    n = len(model.model_base.stack.blocks)
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
+                                 compute_dtype=BF16)
+    state0 = TrainState.create(model.params(), tx)
+    expect = {"fused_gated_block_bf16": n, "fused_gated_block_bwd_bf16": n,
+              "ctc_alpha": 1, "ctc_beta": 1}
+    state, hist, launches = train_steps(step, state0, batch, expect)
+    if any(t.dtype != torch.float32 for t in tree_leaves((state.params, state.opt_state))
+           if t.is_floating_point()):
+        raise AssertionError("bf16 steps: params or optimizer state not float32")
+    with causal_blocks_as(fused_gated_block_ref), ctc_plain():
+        pstate, _, plaunch = train_steps(step, state0, batch)
+    if plaunch:
+        raise AssertionError(f"the plain bf16 steps launched kernels: {plaunch}")
+    with causal_blocks_as(cudnn_block), ctc_plain():
+        cstate, _, _ = train_steps(step, state0, batch)
+    p0 = tree_leaves(state0.params)
+    updates = [[a - b for a, b in zip(tree_leaves(s.params), p0)]
+               for s in (state, pstate, cstate)]
+    return step, tx, state, hist, launches, updates
+
+
+def phase_train_steps_bf16(model, batch):
+    """The bench model's 3 bf16 steps: launches, float32 state, updates to
+    the cuDNN yardstick, and the bf16 losses against the float32 losses."""
+    state0_params = model.params()
+    step, tx, state, hist, launches, (dk, dp, dc) = bf16_steps(model, batch)
+    for i, m in enumerate(hist):
+        log(f"bf16 train step {i + 1} (kernels): "
+            + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
+    log(f"bf16 train steps: launches per step {launches}; params stay float32")
+    upd_k, upd_c = rel_err(dk, dp), rel_err(dc, dp)
+    log(f"3 bf16 steps against the plain versions' 3: updates ||dp - dp_p|| / ||dp_p|| "
+        f"kernels {upd_k:.3e}, bf16 cuDNN composite {upd_c:.3e}, ratio {upd_k / upd_c:.3f} "
+        f"(bound {SENS_FACTOR})")
+    if not upd_k <= SENS_FACTOR * upd_c:
+        raise AssertionError("the bf16 kernel steps' updates differ from the plain steps' "
+                             "beyond the cuDNN yardstick")
+    # the bf16 objective against the float32 one at the same params
+    f32 = make_eval_step(model.model_base, model.model_ctc)(state0_params, batch)
+    b16 = make_eval_step(model.model_base, model.model_ctc, compute_dtype=BF16)(
+        state0_params, batch)
+    log("bf16 against float32 losses at the same params: " + " ".join(
+        f"{k} {float(b16[k]):.6g} vs {float(f32[k]):.6g} (rel "
+        f"{abs(float(b16[k]) - float(f32[k])) / abs(float(f32[k])):.2e})" for k in f32))
+    return step, tx, state, launches
+
+
+def model_parts(model):
+    """The params' leaf indices by part of the model: the WaveNet's causal
+    blocks by thirds of the stack (B5 writes their gradients), the rest of
+    the WaveNet, the classifier."""
+    n = len(model.model_base.stack.blocks)
+    parts = {}
+    for i, name in enumerate(f"{top}.{k}" for top, sub in model.params().items() for k in sub):
+        if name.startswith("base.stack.blocks."):
+            third = 3 * int(name.split(".")[3]) // n
+            key = f"causal blocks {third * n // 3 + 1}-{(third + 1) * n // 3}"
+        else:
+            key = "WaveNet rest" if name.startswith("base.") else "classifier"
+        parts.setdefault(key, []).append(i)
+    return parts
+
+
+def gap_by_part(model, g_k, g_p, g_c):
+    """||g - g_plain|| / ||g_plain|| of the kernels and of the cuDNN
+    composite over each part's leaves that the loss reaches, and the part's
+    share ||g_plain[part]|| / ||g_plain||."""
+    total = float(global_norm_safe(list(g_p)))
+    out = []
+    for part, idx in model_parts(model).items():
+        pick = lambda g: [g[i] for i in idx]
+        if float(global_norm_safe(pick(g_p))) == 0.0:
+            continue
+        out.append(f"{part} {rel_err(pick(g_k), pick(g_p)):.3e}/"
+                   f"{rel_err(pick(g_c), pick(g_p)):.3e} "
+                   f"(share {float(global_norm_safe(pick(g_p))) / total:.3f})")
+    return "; ".join(out)
+
+
+LOSS_TERMS = (("XE alone", JointLoss("joint", ctc_weight=0.0)), ("CTC alone", JointLoss("ctc")))
+
+
+def phase_bf16_grads(model, batch, label):
+    """At full depth the bf16 gradients are held to the cuDNN yardstick
+    only (phase_grad_ratio); what carries their gap: the joint's by part of
+    the model, and each loss term's alone."""
+    g = phase_grad_ratio(model, batch, f"bf16, {label}", step_grads(BF16))
+    log(f"bf16, {label}, joint gap by part (kernel/cuDNN): {gap_by_part(model, *g)}")
+    for term, loss in LOSS_TERMS:
+        g_k, g_p, g_c = grad_sets(model, batch, step_grads(BF16, loss))
+        log(f"bf16, {label}, {term}: ||g - g_plain|| / ||g_plain|| kernel "
+            f"{rel_err(g_k, g_p):.3e}, cuDNN composite {rel_err(g_c, g_p):.3e}; by part "
+            f"{gap_by_part(model, g_k, g_p, g_c)}")
+
+
+def phase_bf16_cut_depth(dev, batch, dils, hold):
+    """The bench model's width and batch at a depth cut to dils = (WaveNet,
+    classifier dilations), initialised from the seed: the kernel bf16
+    step's gradients and the updates of 3 bf16 steps against the plain bf16
+    versions', over all leaves and over the causal blocks' alone (B5's
+    outputs), beside the bf16 cuDNN composite's. With hold, each must be
+    within min(SENS_FACTOR x the cuDNN composite's, BF16_GRAD_RTOL), and a
+    control with the causal blocks' gradients (updates) zeroed must fail
+    that bound."""
+    cfg = cfg_full_width()
+    cfg["model"]["base"]["dilations"], cfg["model"]["classifier"]["dilations"] = dils
+    model = Model("wavenet-ctc", cfg, device=dev).init(SEED)
+    label = f"bf16, depth cut to {len(dils[0])}+{len(dils[1])} blocks"
+    causal = {i for part, idx in model_parts(model).items() if part.startswith("causal")
+              for i in idx}
+    g_k, g_p, g_c = grad_sets(model, batch, step_grads(BF16))
+    *_, launches, (dk, dp, dc) = bf16_steps(model, batch)
+    within = lambda k, c: k <= min(SENS_FACTOR * c, BF16_GRAD_RTOL)
+    problems, rows = [], []
+    for what, (a_k, a_p, a_c) in (("gradients", (g_k, g_p, g_c)), ("updates", (dk, dp, dc))):
+        for leaves, idx in (("all leaves", range(len(a_p))), ("causal blocks", sorted(causal))):
+            pick = lambda g: [g[i] for i in idx]
+            k, c = rel_err(pick(a_k), pick(a_p)), rel_err(pick(a_c), pick(a_p))
+            control = rel_err([0 * a_k[i] if i in causal else a_k[i] for i in idx], pick(a_p))
+            rows.append(f"{what} over {leaves}: kernel {k:.3e}, cuDNN composite {c:.3e}, "
+                        f"control {control:.3e}")
+            if hold and not within(k, c):
+                problems.append(f"{what} over {leaves}: kernel {k:.3e} beyond the bound")
+            if hold and within(control, c):
+                problems.append(f"{what} over {leaves}: the zeroed control {control:.3e} passes")
+    log(f"{label}: ||x - x_plain|| / ||x_plain||"
+        + (f" (bound min({SENS_FACTOR} x cuDNN's, {BF16_GRAD_RTOL}); control: the causal "
+           f"blocks' share zeroed, must fail)" if hold else " (not held)")
+        + ": " + "; ".join(rows) + f"; gradient gap by part (kernel/cuDNN): "
+        f"{gap_by_part(model, g_k, g_p, g_c)}; launches a step {launches}")
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+
+
+def run_training_bf16(dev):
+    batch = bench_batch(dev)
+    model = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
+    phase_bf16_grads(model, batch, "port init")
+    with torch.no_grad():      # the stream's scale kept, as in phase 4
+        for blk in [*model.model_base.stack.blocks, model.model_ctc.input_block,
+                    *model.model_ctc.stack.blocks]:
+            blk.res_w.mul_(0.5 ** 0.5)
+    phase_bf16_grads(model, batch, "scaled res_w")
+    blocks_io = capture_blocks(model, batch, BF16)
+    kernels = phase_bf16_kernels(blocks_io)
+    del blocks_io
+    step, tx, state, launches = phase_train_steps_bf16(model, batch)
+    time_training(model, step, tx, state, batch, BF16)
+    for dils, hold in CUT_DEPTHS:
+        phase_bf16_cut_depth(dev, batch, dils, hold)
+    return kernels
+
+
+# ---- 7. the train entry point -------------------------------------------------
+
+def read_jsonl(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def phase_train_cli(dev):
+    """cli.train_with_result on configs/ecoli_hdf5.json's model and training
+    block (pore data, 20 steps), twice on one run directory. The pore
+    generator draws 10 samples a base, as the hdf5 reads the config is
+    padded for (1216 samples for 120 labels): at its default 4, a third of
+    a read's frames after the classifier's pool of 3 leave some label
+    sequences no CTC alignment (a loss of ~7e27 in the JAX CLI and the
+    port alike)."""
+    cfg = json.loads(CLI_CONFIG.read_text())
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    cfg["training"].update(datatype="pore", min_sample_length=90, max_sample_length=110,
+                           upsampling=10, save_dir=str(run_dir), max_iters=20,
+                           print_every=10, save_every=10, async_checkpoint=True)
+    n_blocks = len(cfg["model"]["base"]["dilations"])
+    counts = None
+    try:
+        for run, (start, end) in enumerate(((0, 20), (20, 40)), 1):
+            logged = len(read_jsonl(run_dir / "logs" / "metrics.jsonl")) if run > 1 else 0
+            reset_counts()
+            t0 = time.perf_counter()
+            result = cli.train_with_result(cfg, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            run_counts = read_counts()
+            counts = counts or run_counts
+            lines = read_jsonl(run_dir / "logs" / "metrics.jsonl")[logged:]
+            steps, valid = end - start, len(lines)     # one validation forward a print
+            messages = (run_dir / "logs" / "messages.log").read_text()
+            ckpts = sorted(int(p.name) for p in (run_dir / "ckpts").iterdir() if p.name.isdigit())
+            want = {"fused_gated_block_bf16": n_blocks * (steps + valid),
+                    "fused_gated_block_bwd_bf16": n_blocks * steps,
+                    "fused_gated_block": 0, "fused_gated_block_bwd": 0}
+            got = {k: run_counts[k] for k in want}
+            losses = [v for l in lines for v in (l["train_loss"], l["valid_loss"])]
+            problems = [what for what, bad in (
+                (f"steps {result['steps']} != {end}", result["steps"] != end),
+                (f"launches {got} != {want}", got != want),
+                (f"non-finite losses {losses}", not all(map(math.isfinite, losses))),
+                (f"{valid} log lines", valid != 2),
+                (f"checkpoints {ckpts}", ckpts != list(range(10, end + 1, 10))),
+                ("no training.log", not (run_dir / "logs" / "training.log").is_file()),
+                ("did not resume at step 20",
+                 run > 1 and f"resumed from {run_dir}/ckpts/ @ step 20" not in messages))
+                if bad]
+            if problems:
+                raise AssertionError(f"train entry point, run {run}: " + "; ".join(problems))
+            log(f"train entry point run {run}: steps {start + 1}-{end} in {secs:.1f} s "
+                f"(model build and first-step set-up included); loop samples_per_s "
+                f"{lines[-1]['samples_per_sec']:.0f} (between the prints at steps "
+                f"{end - 10} and {end}); losses "
+                + ", ".join(f"step {l['step']} train {l['train_loss']:.4f} valid "
+                            f"{l['valid_loss']:.4f}" for l in lines)
+                + f"; launches {got}; checkpoints {ckpts}")
+        cli_parts(cfg, dev, run_dir / "timing")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return counts
+
+
+def check_cli_kernels(model, batch, t, cfg):
+    """B4-bf16 and B5-bf16 against their plain versions at each of the train
+    loop's blocks, on the inputs and cotangents of one bf16 step's objective
+    (the config's loss, length-aware logit lengths) at its own shape."""
+    fn = cli._logit_length_fn(cfg) if t.get("length_aware_ctc") else None
+    blocks_io = capture_blocks(model, batch, BF16, JointLoss(t.get("loss", "joint")), fn)
+    f_err = b_err = 0.0
+    for x, fw, d, dr, ds in blocks_io:
+        f, b = check_bf16_block(x, fw, d, dr, ds)
+        f_err, b_err = max(f_err, f), max(b_err, *b)
+    x = blocks_io[0][0]
+    log(f"train entry point: B4-bf16 and B5-bf16 at its {len(blocks_io)} blocks "
+        f"(B={x.shape[0]}, L={x.shape[1]}, d={sorted({io[2] for io in blocks_io})}) within "
+        f"{BF16_STEP} x |plain| + the float32 term; max_abs_err B4 {f_err:.3e}, B5 {b_err:.3e}")
+
+
+def cli_parts(cfg, dev, ckpt_dir):
+    """The train loop's kernels at its own shape (check_cli_kernels), and
+    where a step of the loop goes (host clock, synchronised, mean of 10
+    after a warm one): the pore batch's generation on the host, its copy to
+    the card, the bf16 train step, a validation forward, and the host copy
+    that an async checkpoint makes before its writer thread."""
+    ds, model, state, (step, *_), eval_fn, t = cli.build_from_config(copy.deepcopy(cfg), dev)
+    fetch_ms, b = host_ms(lambda: ds.fetch("valid"), 10)
+    copy_ms, batch = host_ms(lambda: batch_to_device(b, dev), 10)
+    check_cli_kernels(model, batch, t, cfg)
+    box = [state]
+
+    def one_step():
+        box[0], m = step(box[0], batch)
+        return m
+
+    one_step()
+    step_ms, _ = host_ms(one_step, 10)
+    eval_ms, _ = host_ms(lambda: eval_fn(box[0].params, batch), 10)
+    save_ms, _ = host_ms(lambda: save_checkpoint(str(ckpt_dir), box[0], async_save=True))
+    wait_for_async_saves(str(ckpt_dir))
+    n = int(np.prod(b.signal.shape[:2]))
+    log(f"train entry point, parts of a step (B={b.signal.shape[0]}, L={b.signal.shape[1]}): "
+        f"pore batch on the host {fetch_ms:.3f} ms, copy to the card {copy_ms:.3f} ms, "
+        f"bf16 train step {step_ms:.3f} ms ({n / step_ms * 1e3:.0f} samples/s), validation "
+        f"forward {eval_ms:.3f} ms, async checkpoint's host copy {save_ms:.3f} ms")
 
 
 def main() -> int:
@@ -818,6 +1293,10 @@ def main() -> int:
     # ---- 5. training: the joint step at full width
     del model, caller, greedy, x, logits, plain_logits, lp
     train = run_training(dev)
+    # ---- 6. bf16 training at full width
+    bf16 = run_training_bf16(dev)
+    # ---- 7. the train entry point: this slice's main path
+    cli_launches = phase_train_cli(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
 
@@ -848,6 +1327,16 @@ def main() -> int:
             name=name, route="cuda", source="wavenet_speech_tpu_torch/csrc/ctc.cu",
             replaces=f"wavenet_speech_tpu/ops/pallas/ctc.py:{line}",
             launches=train["launches"][name], max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"]))
+    for key, name, source, line in (
+            ("f", "fused_gated_block_bf16", "fused_block.cu", 58),
+            ("b", "fused_gated_block_bwd_bf16", "fused_block_bwd.cu", 201)):
+        k = bf16[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"wavenet_speech_tpu_torch/csrc/{source}",
+            replaces=f"wavenet_speech_tpu/ops/pallas/residual_block.py:{line}",
+            launches=cli_launches[name], max_abs_err=k["err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,12 @@ cuBLAS (rtol 1e-4, atol 1e-5 at these widths; its backward's weight
 gradients sum over B*L frames, atol 1e-5 of the largest value); the CTC
 kernels run the plain recursion's arithmetic (rtol 1e-5 for values, rtol
 1e-4 and atol 1e-6 for the gradient); the beam must give equal live
-prefixes, lengths and times, scores within 1e-3."""
+prefixes, lengths and times, scores within 1e-3. In bf16 the fused block's
+kernels and plain versions round the same float32 sums, taken in another
+order, to bf16: an output may be one bf16 step apart (2^-7 of its value),
+plus the float32 term above; the forward also rounds act to bf16 before
+the 1x1 product, where one flipped rounding moves an output by up to
+2^-8 * |out_w| (two allowed)."""
 import numpy as np
 import pytest
 import torch
@@ -163,3 +168,82 @@ def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg):
     torch.testing.assert_close(gg[0], gw[0], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(gg[1], gw[1], rtol=1e-5, atol=1e-5)
     assert (ctc_fwd.launches, ctc_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+BF16_OUTPUTS = ("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr")
+
+
+def _assert_bf16_close(got, want, atol, name):
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    diff = (got.float() - want.float()).abs()
+    bad = diff > 2.0 ** -7 * want.float().abs() + atol
+    assert not bad.any(), (f"{name}: {int(bad.sum())} elements beyond tolerance, "
+                           f"max_abs_err {float(diff.max()):.3e}")
+
+
+def _bf16_block(cuda, seed, B, L, C_in, C, K):
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
+    args = (u(B, L, C_in), u(K, C_in, 2 * C) * 0.3, u(2 * C) * 0.1,
+            u(C, 2 * C) * 0.3, u(2 * C) * 0.1, u(C_in, C) * 0.3, u(C) * 0.1)
+    return [a.to(torch.bfloat16) for a in args], u(B, L, C).to(torch.bfloat16), \
+        u(B, L, C).to(torch.bfloat16)
+
+
+def _fwd_atol(want, out_w):
+    return 1e-5 * max(float(w.float().abs().max()) for w in want) + \
+        2 * 2.0 ** -8 * float(out_w.float().abs().max())
+
+
+@pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
+                                            (1, 37, 8, 12, 3, 5),
+                                            (2, 700, 64, 64, 2, 512),
+                                            (3, 129, 260, 132, 2, 7)])
+def test_fused_block_bf16_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
+    args, _, _ = _bf16_block(cuda, d, B, L, C_in, C, K)
+    before = (fused_gated_block.launches, fused_gated_block.launches_bf16)
+    with torch.inference_mode():
+        got = fused_gated_block(*args, d)
+        want = fused_gated_block_ref(*args, d)
+    torch.cuda.synchronize()
+    assert (fused_gated_block.launches, fused_gated_block.launches_bf16) == \
+        (before[0], before[1] + 1)
+    for name, a, b in zip(("resid", "skip"), got, want):
+        _assert_bf16_close(a, b, _fwd_atol(want, args[3]), name)
+
+
+@pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
+                                            (1, 37, 8, 12, 3, 5),
+                                            (2, 700, 64, 64, 2, 512),
+                                            (3, 129, 260, 132, 2, 7)])
+def test_fused_block_bwd_bf16_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
+    (x, gw, gb, ow, _, rw, _), dr, ds = _bf16_block(cuda, d + 1, B, L, C_in, C, K)
+    before = (fused_gated_block_bwd.launches, fused_gated_block_bwd.launches_bf16)
+    got = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d)
+    want = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d)
+    again = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d)
+    torch.cuda.synchronize()
+    assert (fused_gated_block_bwd.launches, fused_gated_block_bwd.launches_bf16) == \
+        (before[0], before[1] + 2)
+    for name, a, b, c in zip(BF16_OUTPUTS, got, want, again):
+        assert torch.equal(a, c), f"{name}: two launches differ"  # deterministic
+        scale = float(b.float().abs().max())
+        _assert_bf16_close(a, b, (1e-5 if name == "dx" else 1e-4) * scale, name)
+
+
+def test_fused_block_bf16_autograd_matches_plain(cuda):
+    """The autograd Function in bf16 (B4-bf16 forward, B5-bf16 backward)
+    against the plain versions of both, on the same cotangents."""
+    args, dr, ds = _bf16_block(cuda, 3, 2, 200, 16, 16, 2)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    r, s = fused_gated_block(*leaves, 8)
+    torch.autograd.backward((r, s), (dr, ds))
+    want = fused_gated_block_ref(*args, 8)
+    for name, a, b in zip(("resid", "skip"), (r.detach(), s.detach()), want):
+        _assert_bf16_close(a, b, _fwd_atol(want, args[3]), name)
+    x, gw, gb, ow, _, rw, _ = args
+    wantb = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, 8)
+    got = [t.grad for t in leaves]
+    for name, i in zip(BF16_OUTPUTS, range(7)):
+        scale = float(wantb[i].float().abs().max())
+        _assert_bf16_close(got[i], wantb[i], (1e-5 if name == "dx" else 1e-4) * scale, name)

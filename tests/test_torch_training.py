@@ -304,10 +304,3 @@ def test_train_state_from_jax(optim_type):
         assert torch.equal(a, b)
     assert int(got.step) == 1
     assert got.params["base"].keys() == own.params["base"].keys()
-
-
-def test_bf16_compute_raises():
-    _, _, tnet, tclf, _ = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_joint_train_step(tnet, tclf, build_optimizer("sgd", 0.1),
-                              compute_dtype=torch.bfloat16)

@@ -1,0 +1,239 @@
+"""Config-driven trainer (wavenet_speech_tpu/cli.py):
+
+    python -m wavenet_speech_tpu_torch.cli train cfg.json [--device cpu]
+
+The training loop follows the JAX CLI's: fixed or fresh validation batches
+re-scored at every print, a moving-average train loss, samples/s, early stop
+on the validation loss, periodic checkpoints (optionally written on a
+thread), resume from the latest checkpoint of the run directory, and a save
+on exit. The run goes to ``cuda`` unless ``--device`` names another device
+(``--device cpu`` runs the kernels' plain versions).
+
+Not ported yet: the ``evaluate`` and ``basecall`` commands, and every
+datatype but ``pore`` (ROADMAP A9, A10).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from wavenet_speech_tpu_torch.data.common import Batch
+from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
+from wavenet_speech_tpu_torch.facade import Dataset, Model
+from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
+                                               make_eval_step, make_joint_train_step,
+                                               make_lr_schedule)
+from wavenet_speech_tpu_torch.training.checkpoint import (latest_step, restore_checkpoint,
+                                                          save_checkpoint,
+                                                          wait_for_async_saves)
+from wavenet_speech_tpu_torch.utils.config import config_to_json, json_to_config, training_cfg
+from wavenet_speech_tpu_torch.utils.run_logging import Logger, MovingAverageMeter, Throughput
+
+# --- optional stall watchdog ---------------------------------------------------
+# With WAVENET_CLI_STALL_SECS set, a ``train`` command whose loop makes no
+# progress for that long re-executes itself (``python -m`` this module, the
+# same arguments) and so resumes from its latest checkpoint. Only ``main``
+# arms it: a program that calls ``train`` has arguments of its own.
+_progress = {"t": time.time(), "armed": False}
+
+
+def _tick():
+    _progress["t"] = time.time()
+
+
+def _stall_watchdog(stall_seconds: float, poll_seconds: float = 10.0):
+    while True:
+        time.sleep(poll_seconds)
+        if _progress["armed"] and time.time() - _progress["t"] > stall_seconds:
+            print("[cli] training loop stalled; re-exec for checkpoint resume",
+                  file=sys.stderr, flush=True)
+            os.execv(sys.executable, [sys.executable, "-m", "wavenet_speech_tpu_torch.cli",
+                                      *sys.argv[1:]])
+
+
+def _arm_watchdog():
+    secs = os.environ.get("WAVENET_CLI_STALL_SECS")
+    if secs:
+        threading.Thread(target=_stall_watchdog, args=(float(secs),),
+                         daemon=True).start()
+        _tick()
+        _progress["armed"] = True
+
+
+def _logit_length_fn(cfg):
+    """True signal lengths -> per-sequence logit lengths of the classifier
+    (its average pool divides the length)."""
+    pool = cfg.get("model", {}).get("classifier", {}).get("downsample", 1)
+    return lambda sl: sl // pool
+
+
+def build_from_config(cfg, device=None):
+    """(dataset, model, state, (step, xe_step, xe_iters, multi_step, K),
+    eval_step, training block) of a config, as the JAX CLI builds them
+    (cli.py:64-142). The model is on ``device`` (default ``cuda``)."""
+    t = training_cfg(cfg)
+    datatype = t.get("datatype", "pore" if t["training_data"] is None else "hdf5")
+    dataset = Dataset(
+        datatype, dataset=t["training_data"],
+        max_iters=t["max_iters"], num_epochs=t["num_epochs"],
+        epoch_size=t["epoch_size"], batch_size=t["batch_size"],
+        num_levels=cfg.get("model", {}).get("base", {}).get("signal_dim", 256),
+        min_length=t["min_sample_length"], max_length=t["max_sample_length"],
+        seed=t.get("seed"), upsampling=t.get("upsampling", 4),
+        sample_noise=t.get("sample_noise", 2.0))
+
+    model_type = cfg.get("model", {}).get("type", "wavenet-ctc")
+    model = Model(model_type, cfg, device=device).init(t.get("seed") or 0)
+
+    opt = t["optim"]
+    tx = build_optimizer(opt["type"], make_lr_schedule(opt),
+                         weight_decay=opt.get("wd") or None,
+                         max_grad_norm=opt.get("max_grad_norm"),
+                         max_update_norm=opt.get("max_update_norm"))
+    state = TrainState.create(model.params(), tx)
+
+    loss_choice = t.get("loss", "joint")
+    loss = JointLoss(loss_choice)
+    compute_dtype = None
+    if str(t.get("compute_dtype", "")).lower() in ("bf16", "bfloat16"):
+        compute_dtype = torch.bfloat16
+    logit_length_fn = _logit_length_fn(cfg) if t.get("length_aware_ctc") else None
+    kw = dict(compute_dtype=compute_dtype, logit_length_fn=logit_length_fn)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, loss, **kw)
+    # steps_per_call > 1: K stacked batches a call (trainer steps_per_call)
+    K = int(t.get("steps_per_call", 1) or 1)
+    multi_step = (make_joint_train_step(model.model_base, model.model_ctc, tx, loss,
+                                        steps_per_call=K, **kw) if K > 1 else None)
+    eval_step = make_eval_step(model.eval_base(), model.model_ctc, loss, **kw)
+    # optional XE-only pretraining phase (the JAX CLI's two-phase training)
+    xe_iters = int(t.get("xe_pretrain_iters", 0) or 0)
+    xe_step = None
+    if xe_iters > 0 and loss_choice == "joint":
+        xe_step = make_joint_train_step(model.model_base, model.model_ctc, tx,
+                                        JointLoss("joint", ctc_weight=0.0), **kw)
+    return dataset, model, state, (step, xe_step, xe_iters, multi_step, K), eval_step, t
+
+
+def train(cfg, device=None) -> int:
+    train_with_result(cfg, device)
+    return 0
+
+
+def train_with_result(cfg, device=None) -> dict:
+    """Run the training loop (cli.py:150-301) and return {"vloss": best
+    validation loss (the train moving average when no validation number
+    came), "train_loss", "steps"}."""
+    dataset, model, state, (step_fn, xe_step_fn, xe_iters, multi_fn, K), \
+        eval_fn, t = build_from_config(cfg, device)
+    dev = model.device
+    logger = Logger(t["save_dir"])
+    config_to_json(cfg, os.path.join(t["save_dir"], "config.json"))
+
+    if t.get("restore"):
+        state = restore_checkpoint(t["restore"], state)
+        logger.message(f"restored checkpoint from {t['restore']} @ step {int(state.step)}")
+    elif latest_step(logger.ckpt_dir) is not None:
+        state = restore_checkpoint(logger.ckpt_dir, state)
+        logger.message(f"resumed from {logger.ckpt_dir} @ step {int(state.step)}")
+
+    # fixed validation batches, drawn once and re-scored at every print
+    fixed_valid = []
+    for _ in range(int(t.get("fixed_valid_batches", 0) or 0)):
+        fixed_valid.append(batch_to_device(dataset.fetch("valid"), dev))
+
+    meter = MovingAverageMeter(5)
+    tput = Throughput()
+    best_vloss = float("inf")
+    stop_threshold = t.get("early_stop_vloss")
+    step_idx = int(state.step)
+    samples_acc = 0
+    try:
+        while True:
+            _tick()
+            prev_idx = step_idx
+            # K steps a call once past the XE-pretrain phase
+            use_multi = multi_fn is not None and (xe_step_fn is None or step_idx >= xe_iters)
+            batches = []
+            try:
+                while len(batches) < (K if use_multi else 1):
+                    batches.append(dataset.fetch("train"))
+            except StopIteration:
+                if not batches:
+                    break
+            if use_multi and len(batches) == K:
+                stacked = Batch(*(np.stack([getattr(b, f) for b in batches])
+                                  for f in FIELDS))
+                state, metrics = multi_fn(state, batch_to_device(stacked, dev))
+                metrics = {k: v[-1] for k, v in metrics.items()}
+                step_idx += K
+            else:  # single steps (K=1, the XE phase, or a ragged epoch tail)
+                for b in batches:
+                    step_idx += 1
+                    fn = (xe_step_fn if xe_step_fn is not None and step_idx <= xe_iters
+                          else step_fn)
+                    state, metrics = fn(state, batch_to_device(b, dev))
+            samples_acc += sum(int(np.prod(b.signal.shape[:2])) for b in batches)
+
+            if step_idx // t["print_every"] > prev_idx // t["print_every"]:
+                # the loss is read back (a sync) only here
+                meter.add(float(metrics["total_loss"]))
+                tput.tick(samples_acc)
+                samples_acc = 0
+                if fixed_valid:
+                    vloss = float(np.mean([float(eval_fn(state.params, vb)["total_loss"])
+                                           for vb in fixed_valid]))
+                else:
+                    vloss = float(eval_fn(state.params, batch_to_device(
+                        dataset.fetch("valid"), dev))["total_loss"])
+                logger.log("loss", step_idx, meter.value, vloss)
+                logger.metrics(step_idx, train_loss=meter.value, valid_loss=vloss,
+                               ctc_loss=float(metrics["ctc_loss"]),
+                               samples_per_sec=tput.samples_per_sec)
+                print(f"step {step_idx}: loss {meter.value:.4f} (valid {vloss:.4f}) "
+                      f"[{(tput.samples_per_sec or 0):.0f} samples/s]", flush=True)
+                if not np.isnan(vloss) and vloss < best_vloss:
+                    best_vloss = vloss
+                stop_crit = vloss if not np.isnan(vloss) else meter.value
+                if stop_threshold is not None and stop_crit < stop_threshold:
+                    logger.message(f"early stop at step {step_idx}: "
+                                   f"loss {stop_crit:.4f} < {stop_threshold}")
+                    break
+            if step_idx // t["save_every"] > prev_idx // t["save_every"]:
+                save_checkpoint(logger.ckpt_dir, state,
+                                async_save=bool(t.get("async_checkpoint")))
+                logger.message(f"checkpoint @ step {step_idx}")
+    except KeyboardInterrupt:
+        logger.message("interrupted; saving")
+    finally:
+        # save on exit: the periodic save's step is not written twice
+        wait_for_async_saves(logger.ckpt_dir)
+        save_checkpoint(logger.ckpt_dir, state)
+        logger.message(f"final checkpoint @ step {step_idx}")
+        logger.close()
+    return {"vloss": best_vloss if np.isfinite(best_vloss) else meter.value,
+            "train_loss": meter.value, "steps": step_idx}
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m wavenet_speech_tpu_torch.cli",
+        description="WaveNet-CTC trainer, PyTorch/CUDA port")
+    ap.add_argument("command", choices=["train"])
+    ap.add_argument("config", help="path to JSON config")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args(argv)
+    _arm_watchdog()
+    return train(json_to_config(args.config), args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

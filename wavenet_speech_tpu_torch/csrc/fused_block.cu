@@ -1,4 +1,5 @@
-// Fused causal gated residual block, forward, float32, for Hopper (sm_90a).
+// Fused causal gated residual block, forward, float32 or bf16, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/residual_block.py
 // (_kernel, launched by _forward). Per (batch b, time tile of TL rows):
@@ -30,12 +31,23 @@
 //    128 channels a chunk; 1152 blocks at the serving shape, 55 KB of shared
 //    memory, two blocks an SM (125 registers a thread). Of 16, 32 and 64 rows,
 //    timed on an H100, 32 was the fastest or tied (PERF.md).
-// Tensor cores (TF32/bf16 wgmma) are later work; this kernel keeps float32.
 //
-// Requires C_in % 4 == 0, C % 4 == 0, contiguous 16-byte-aligned tensors
-// (checked by the Python wrapper).
+// bf16 (the TPU kernel's own form, residual_block.py:78-94): every tensor is
+// bf16 in device memory and widened to float as it enters shared memory, so
+// the gate and both 1x1 products multiply bf16 values exactly and sum in
+// float (the MXU's bf16 x bf16 -> f32), the biases add in float, act is
+// rounded to bf16 before the 1x1 product (the TPU kernel's act.astype), and
+// resid and skip are summed in float and stored rounded to bf16. The same
+// FMAs run on the CUDA cores as in float32, so its time is float32's less
+// the halved bytes. The card's least time for the same bf16 work is set by
+// the tensor cores (989 TFLOP/s: 0.034 ms); wgmma is later work.
+//
+// Requires C_in % 4 == 0, C % 4 == 0, contiguous tensors aligned to four
+// values (16 bytes float, 8 bytes bf16), all of one type (checked by the
+// Python wrapper).
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stddef.h>
 
 #include "common.cuh"
@@ -48,12 +60,13 @@ size_t smem_bytes(int C) {
   return sizeof(float) * ((size_t)Cp * AS + KC * AS + KC * BS);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
-                         const float* __restrict__ gate_b, const float* __restrict__ out_w,
-                         const float* __restrict__ out_b, const float* __restrict__ res_w,
-                         const float* __restrict__ res_b, float* __restrict__ resid,
-                         float* __restrict__ skip, int L, int C_in, int C, int K,
+fused_gated_block_kernel(const T* __restrict__ x, const T* __restrict__ gate_w,
+                         const T* __restrict__ gate_b, const T* __restrict__ out_w,
+                         const T* __restrict__ out_b, const T* __restrict__ res_w,
+                         const T* __restrict__ res_b, T* __restrict__ resid,
+                         T* __restrict__ skip, int L, int C_in, int C, int K,
                          int dilation) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -66,7 +79,7 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int t0 = blockIdx.x * TL;
   const int tx = threadIdx.x % CG;
   const int ty = threadIdx.x / CG;
-  const float* xb = x + (size_t)b * L * C_in;
+  const T* xb = x + (size_t)b * L * C_in;
   const int C2 = 2 * C;
 
   float acc0[4][4], acc1[4][4], acc2[4][4];
@@ -77,7 +90,7 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
     zero(acc1);
     for (int tap = 0; tap < K; ++tap) {
       const int shift = (K - 1 - tap) * dilation;
-      const float* w_tap = gate_w + (size_t)tap * C_in * C2;
+      const T* w_tap = gate_w + (size_t)tap * C_in * C2;
       for (int c0 = 0; c0 < C_in; c0 += KC) {
         load_rows_t(As, xb, xb, C_in, t0 - shift, c0, L, C_in);
         load_w_tile<true>(Bs, w_tap, C2, c0, C_in, p0, C + p0, C - p0, C - p0);
@@ -91,11 +104,12 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int col = p0 + tx * 4 + j;
       float a[4] = {0.f, 0.f, 0.f, 0.f};
       if (col < C) {
-        const float bt = gate_b[col];
-        const float bs = gate_b[C + col];
+        const float bt = to_f(gate_b[col]);
+        const float bs = to_f(gate_b[C + col]);
+        // act rounded to T before the 1x1 product (residual_block.py:88)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          a[i] = tanhf(acc0[i][j] + bt) * sigmoid_f(acc1[i][j] + bs);
+          a[i] = round_to<T>(tanhf(acc0[i][j] + bt) * sigmoid_f(acc1[i][j] + bs));
       }
       *reinterpret_cast<float4*>(actT + col * AS + ty * 4) = make_float4(a[0], a[1], a[2], a[3]);
     }
@@ -122,9 +136,9 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
     }
     const int col = q0 + tx * 4;
     if (col < C) {
-      const float4 ob_r = *reinterpret_cast<const float4*>(out_b + col);
-      const float4 ob_s = *reinterpret_cast<const float4*>(out_b + C + col);
-      const float4 rb = *reinterpret_cast<const float4*>(res_b + col);
+      const float4 ob_r = load4(out_b + col);
+      const float4 ob_s = load4(out_b + C + col);
+      const float4 rb = load4(res_b + col);
       const float obr[4] = {ob_r.x, ob_r.y, ob_r.z, ob_r.w};
       const float obs[4] = {ob_s.x, ob_s.y, ob_s.z, ob_s.w};
       const float rbv[4] = {rb.x, rb.y, rb.z, rb.w};
@@ -139,11 +153,26 @@ fused_gated_block_kernel(const float* __restrict__ x, const float* __restrict__ 
           s[j] = acc1[i][j] + obs[j];
         }
         const size_t off = ((size_t)b * L + t) * C + col;
-        *reinterpret_cast<float4*>(resid + off) = make_float4(r[0], r[1], r[2], r[3]);
-        *reinterpret_cast<float4*>(skip + off) = make_float4(s[0], s[1], s[2], s[3]);
+        store4(resid + off, r[0], r[1], r[2], r[3]);
+        store4(skip + off, s[0], s[1], s[2], s[3]);
       }
     }
   }
+}
+
+template <typename T>
+int launch(const T* x, const T* gate_w, const T* gate_b, const T* out_w, const T* out_b,
+           const T* res_w, const T* res_b, T* resid, T* skip, int B, int L, int C_in, int C,
+           int K, int dilation, void* stream) {
+  if (B <= 0 || L <= 0) return 0;
+  if (C_in % 4 || C % 4 || K < 1 || dilation < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(C);
+  int rc = wst_set_smem(fused_gated_block_kernel<T>, smem);
+  if (rc) return rc;
+  dim3 grid((L + TL - 1) / TL, B);
+  fused_gated_block_kernel<T><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, L, C_in, C, K, dilation);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -154,13 +183,18 @@ extern "C" int wst_fused_gated_block_f32(const float* x, const float* gate_w,
                                          const float* res_b, float* resid, float* skip,
                                          int B, int L, int C_in, int C, int K,
                                          int dilation, void* stream) {
-  if (B <= 0 || L <= 0) return 0;
-  if (C_in % 4 || C % 4 || K < 1 || dilation < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C);
-  int rc = wst_set_smem(fused_gated_block_kernel, smem);
-  if (rc) return rc;
-  dim3 grid((L + TL - 1) / TL, B);
-  fused_gated_block_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, L, C_in, C, K, dilation);
-  return (int)cudaGetLastError();
+  return launch(x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, B, L, C_in, C, K,
+                dilation, stream);
+}
+
+extern "C" int wst_fused_gated_block_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gate_w,
+                                          const __nv_bfloat16* gate_b,
+                                          const __nv_bfloat16* out_w,
+                                          const __nv_bfloat16* out_b,
+                                          const __nv_bfloat16* res_w,
+                                          const __nv_bfloat16* res_b, __nv_bfloat16* resid,
+                                          __nv_bfloat16* skip, int B, int L, int C_in, int C,
+                                          int K, int dilation, void* stream) {
+  return launch(x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, B, L, C_in, C, K,
+                dilation, stream);
 }

@@ -1,4 +1,5 @@
-// Fused causal gated residual block, backward, float32, for Hopper (sm_90a).
+// Fused causal gated residual block, backward, float32 or bf16, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/
 // residual_block.py (_bwd_kernel, launched by _pallas_bwd). The forward
@@ -37,12 +38,26 @@
 //    weights streamed from L2 16 rows deep, 4 x 4 register tiles. Pass (c)
 //    streams 16 frames a stage through 64 x 64 tiles of A and B.
 //
+// bf16 (the TPU kernel's own form, residual_block.py:245-300 and 382-384):
+// x, the weights, dresid and dskip are bf16 in device memory and widened to
+// float as they are loaded, so the gate is recomputed from bf16 x and Wg
+// with float sums, and da, dx and all six weight-gradient products are
+// float products of the widened values with the float dg and act of pass
+// (a) (act is not rounded to bf16 here: the TPU kernel's dWo reads its
+// float recompute). dx is stored rounded to bf16, and pass (d) rounds the
+// reduced gradients to bf16, the weights' type. The scratch dg, act and the
+// slice partials stay float. The card's least time for the same work is set
+// by the float products, as in float32 (the bf16 gate recompute alone would
+// take 0.019 ms on the tensor cores).
+//
 // The wrapper passes the weights transposed (Wo^T, Wg[tap]^T, Wr^T), so
 // every weight tile is read along its rows. Requires C_in % 4 == 0,
-// C % 4 == 0, K <= MAX_TAPS, contiguous 16-byte-aligned tensors (checked by
-// the Python wrapper).
+// C % 4 == 0, K <= MAX_TAPS, contiguous tensors aligned to four values (16
+// bytes float, 8 bytes bf16), all of one type (checked by the Python
+// wrapper).
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stddef.h>
 
 #include "common.cuh"
@@ -57,10 +72,11 @@ constexpr int WK = 16;       // frames a stage
 constexpr int WNT = 256;     // threads, 16 x 16, each a 4 x 4 register tile
 
 // ---- (a) recompute the gate, then dg and act for TL rows -------------------
+template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-bwd_gate_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
-                const float* __restrict__ gate_b, const float* __restrict__ woT,
-                const float* __restrict__ dresid, const float* __restrict__ dskip,
+bwd_gate_kernel(const T* __restrict__ x, const T* __restrict__ gate_w,
+                const T* __restrict__ gate_b, const T* __restrict__ woT,
+                const T* __restrict__ dresid, const T* __restrict__ dskip,
                 float* __restrict__ dg, float* __restrict__ act, int L, int C_in, int C,
                 int K, int dilation) {
   extern __shared__ float4 smem4[];
@@ -70,9 +86,9 @@ bwd_gate_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
   const int t0 = blockIdx.x * TL;
   const int tx = threadIdx.x % CG;
   const int ty = threadIdx.x / CG;
-  const float* xb = x + (size_t)b * L * C_in;
-  const float* drb = dresid + (size_t)b * L * C;
-  const float* dsb = dskip + (size_t)b * L * C;
+  const T* xb = x + (size_t)b * L * C_in;
+  const T* drb = dresid + (size_t)b * L * C;
+  const T* dsb = dskip + (size_t)b * L * C;
   const int C2 = 2 * C;
   float acc0[4][4], acc1[4][4], acc2[4][4];
 
@@ -82,7 +98,7 @@ bwd_gate_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
     zero(acc2);  // da = do @ Wo^T       (channels p0 ..)
     for (int tap = 0; tap < K; ++tap) {
       const int shift = (K - 1 - tap) * dilation;
-      const float* w_tap = gate_w + (size_t)tap * C_in * C2;
+      const T* w_tap = gate_w + (size_t)tap * C_in * C2;
       for (int c0 = 0; c0 < C_in; c0 += KC) {
         load_rows_t(As, xb, xb, C_in, t0 - shift, c0, L, C_in);
         load_w_tile<true>(Bs, w_tap, C2, c0, C_in, p0, C + p0, C - p0, C - p0);
@@ -103,8 +119,8 @@ bwd_gate_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
     float bt[4], bs[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      bt[j] = gate_b[col + j];
-      bs[j] = gate_b[C + col + j];
+      bt[j] = to_f(gate_b[col + j]);
+      bs[j] = to_f(gate_b[C + col + j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -121,19 +137,19 @@ bwd_gate_kernel(const float* __restrict__ x, const float* __restrict__ gate_w,
         a[j] = th * sg;
       }
       const size_t r = (size_t)b * L + t;
-      *reinterpret_cast<float4*>(dg + r * C2 + col) = make_float4(gt[0], gt[1], gt[2], gt[3]);
-      *reinterpret_cast<float4*>(dg + r * C2 + C + col) =
-          make_float4(gs[0], gs[1], gs[2], gs[3]);
-      *reinterpret_cast<float4*>(act + r * C + col) = make_float4(a[0], a[1], a[2], a[3]);
+      store4(dg + r * C2 + col, gt[0], gt[1], gt[2], gt[3]);
+      store4(dg + r * C2 + C + col, gs[0], gs[1], gs[2], gs[3]);
+      store4(act + r * C + col, a[0], a[1], a[2], a[3]);
     }
   }
 }
 
 // ---- (b) dx for TL rows, 2 x CH input channels at a time --------------------
+template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-bwd_dx_kernel(const float* __restrict__ dg, const float* __restrict__ dresid,
-              const float* __restrict__ wgT, const float* __restrict__ wrT,
-              float* __restrict__ dx, int L, int C_in, int C, int K, int dilation) {
+bwd_dx_kernel(const float* __restrict__ dg, const T* __restrict__ dresid,
+              const T* __restrict__ wgT, const T* __restrict__ wrT,
+              T* __restrict__ dx, int L, int C_in, int C, int K, int dilation) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);
   float* Bs = As + KC * AS;
@@ -143,7 +159,7 @@ bwd_dx_kernel(const float* __restrict__ dg, const float* __restrict__ dresid,
   const int ty = threadIdx.x / CG;
   const int C2 = 2 * C;
   const float* dgb = dg + (size_t)b * L * C2;
-  const float* drb = dresid + (size_t)b * L * C;
+  const T* drb = dresid + (size_t)b * L * C;
   float acc0[4][4], acc1[4][4];
 
   for (int q0 = 0; q0 < C_in; q0 += 2 * CH) {
@@ -151,7 +167,7 @@ bwd_dx_kernel(const float* __restrict__ dg, const float* __restrict__ dresid,
     zero(acc1);  // dx channels q0 + CH ..
     for (int tap = 0; tap < K; ++tap) {
       const int shift = (K - 1 - tap) * dilation;
-      const float* w_tap = wgT + (size_t)tap * C2 * C_in;  // (2C, C_in)
+      const T* w_tap = wgT + (size_t)tap * C2 * C_in;  // (2C, C_in)
       for (int k0 = 0; k0 < C2; k0 += KC) {
         load_rows_t(As, dgb, dgb, C2, t0 + shift, k0, L, C2);
         load_w_tile<true>(Bs, w_tap, C_in, k0, C2, q0, q0 + CH, C_in - q0, C_in - q0 - CH);
@@ -171,15 +187,11 @@ bwd_dx_kernel(const float* __restrict__ dg, const float* __restrict__ dresid,
     for (int i = 0; i < 4; ++i) {
       const int t = t0 + ty * 4 + i;
       if (t >= L) continue;
-      float* row = dx + ((size_t)b * L + t) * C_in;
+      T* row = dx + ((size_t)b * L + t) * C_in;
       const int ca = q0 + tx * 4;
       const int cb = q0 + CH + tx * 4;
-      if (ca < C_in)
-        *reinterpret_cast<float4*>(row + ca) =
-            make_float4(acc0[i][0], acc0[i][1], acc0[i][2], acc0[i][3]);
-      if (cb < C_in)
-        *reinterpret_cast<float4*>(row + cb) =
-            make_float4(acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
+      if (ca < C_in) store4(row + ca, acc0[i][0], acc0[i][1], acc0[i][2], acc0[i][3]);
+      if (cb < C_in) store4(row + cb, acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
     }
   }
 }
@@ -188,11 +200,14 @@ bwd_dx_kernel(const float* __restrict__ dg, const float* __restrict__ dresid,
 // A and B are (N = B*L, cols) matrices over the frames, each stored as one
 // or two column blocks (see load_rows_t); A's rows are shifted by a_shift
 // frames within each sequence (rows before a sequence's start read zero).
+// An operand is stored in the kernel's type T (x, dresid, dskip) or in float
+// (the scratch dg and act): a_t, b_t.
 struct Job {
-  const float* a0;
-  const float* a1;
-  const float* b0;
-  const float* b1;
+  const void* a0;
+  const void* a1;
+  const void* b0;
+  const void* b1;
+  int a_t, b_t;
   int a_split, a_cols, a_shift;
   int b_split, b_cols;
   int out;      // offset of the (a_cols, b_cols) result in the gradient layout
@@ -205,12 +220,21 @@ struct Jobs {
   int n;
 };
 
-__device__ __forceinline__ float4 load_cols4(const float* p0, const float* p1, int split,
+template <typename S>
+__device__ __forceinline__ float4 load_cols4(const void* p0, const void* p1, int split,
                                              int cols, size_t row, int c) {
-  return c < split ? *reinterpret_cast<const float4*>(p0 + row * split + c)
-                   : *reinterpret_cast<const float4*>(p1 + row * (cols - split) + (c - split));
+  return c < split ? load4(static_cast<const S*>(p0) + row * split + c)
+                   : load4(static_cast<const S*>(p1) + row * (cols - split) + (c - split));
 }
 
+template <typename T>
+__device__ __forceinline__ float4 load_cols4(bool in_t, const void* p0, const void* p1,
+                                             int split, int cols, size_t row, int c) {
+  return in_t ? load_cols4<T>(p0, p1, split, cols, row, c)
+              : load_cols4<float>(p0, p1, split, cols, row, c);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(WNT)
 bwd_wgrad_kernel(const Jobs jobs, float* __restrict__ part, int W, int N, int L,
                  int rows_per_slice) {
@@ -240,9 +264,10 @@ bwd_wgrad_kernel(const Jobs jobs, float* __restrict__ part, int W, int N, int L,
     if (n < n_end) {
       const int t = n % L;
       if (i0 + lc < jb.a_cols && t >= jb.a_shift)
-        va = load_cols4(jb.a0, jb.a1, jb.a_split, jb.a_cols, (size_t)(n - jb.a_shift), i0 + lc);
+        va = load_cols4<T>(jb.a_t, jb.a0, jb.a1, jb.a_split, jb.a_cols,
+                           (size_t)(n - jb.a_shift), i0 + lc);
       if (j0 + lc < jb.b_cols)
-        vb = load_cols4(jb.b0, jb.b1, jb.b_split, jb.b_cols, (size_t)n, j0 + lc);
+        vb = load_cols4<T>(jb.b_t, jb.b0, jb.b1, jb.b_split, jb.b_cols, (size_t)n, j0 + lc);
     }
     As4[lk * (WT / 4) + lc / 4] = va;
     Bs4[lk * (WT / 4) + lc / 4] = vb;
@@ -280,30 +305,26 @@ bwd_wgrad_kernel(const Jobs jobs, float* __restrict__ part, int W, int N, int L,
         make_float4(bsum[0], bsum[1], bsum[2], bsum[3]);
 }
 
-// ---- (d) add the slices' partial sums, in slice order ----------------------
-__global__ void bwd_slice_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+// ---- (d) add the slices' partial sums, in slice order, and store as T -----
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
+__global__ void bwd_slice_sum_kernel(const float* __restrict__ part, T* __restrict__ out,
                                      int W) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < W; e += gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < NSLICE; ++k) s += part[(size_t)k * W + e];
-    out[e] = s;
+    store1(out + e, s);
   }
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-}  // namespace
-
-// Scratch: dg (B, L, 2C), act (B, L, C), part (NSLICE, W) floats, where W is
-// the size of the gradient layout grads = [dWg (K, C_in, 2C) | dbg (2C) |
-// dWo (C, 2C) | dbo (2C) | dWr (C_in, C) | dbr (C)].
-extern "C" int wst_fused_block_bwd_slices() { return NSLICE; }
-
-extern "C" int wst_fused_gated_block_bwd_f32(
-    const float* x, const float* dresid, const float* dskip, const float* gate_w,
-    const float* gate_b, const float* woT, const float* wgT, const float* wrT, float* dx,
-    float* grads, float* dg, float* act, float* part, int B, int L, int C_in, int C, int K,
-    int dilation, void* stream) {
+template <typename T>
+int launch(const T* x, const T* dresid, const T* dskip, const T* gate_w, const T* gate_b,
+           const T* woT, const T* wgT, const T* wrT, T* dx, T* grads, float* dg, float* act,
+           float* part, int B, int L, int C_in, int C, int K, int dilation, void* stream) {
   if (C_in % 4 || C % 4 || K < 1 || K > MAX_TAPS || dilation < 1 || B < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -318,33 +339,63 @@ extern "C" int wst_fused_gated_block_bwd_f32(
   if (N > 0) {
     const size_t smem = sizeof(float) * (KC * AS + KC * BS);
     const dim3 grid(cdiv(L, TL), B);
-    bwd_gate_kernel<<<grid, NT, smem, st>>>(x, gate_w, gate_b, woT, dresid, dskip, dg, act, L,
-                                             C_in, C, K, dilation);
+    bwd_gate_kernel<T><<<grid, NT, smem, st>>>(x, gate_w, gate_b, woT, dresid, dskip, dg, act,
+                                                L, C_in, C, K, dilation);
     int rc = (int)cudaGetLastError();
     if (rc) return rc;
-    bwd_dx_kernel<<<grid, NT, smem, st>>>(dg, dresid, wgT, wrT, dx, L, C_in, C, K, dilation);
+    bwd_dx_kernel<T><<<grid, NT, smem, st>>>(dg, dresid, wgT, wrT, dx, L, C_in, C, K, dilation);
     rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
   Jobs jobs;
   int tiles = 0;
-  auto add = [&](const float* a0, const float* a1, int a_split, int a_cols, int a_shift,
-                 const float* b0, const float* b1, int b_split, int b_cols, int out, int bias) {
+  // a_t / b_t: the operand is stored in T (x, dresid, dskip), else float (dg, act)
+  auto add = [&](const void* a0, const void* a1, int a_t, int a_split, int a_cols, int a_shift,
+                 const void* b0, const void* b1, int b_t, int b_split, int b_cols, int out,
+                 int bias) {
     Job& j = jobs.job[jobs.n++];
-    j = Job{a0, a1, b0, b1, a_split, a_cols, a_shift, b_split, b_cols, out, bias,
+    j = Job{a0, a1, b0, b1, a_t, b_t, a_split, a_cols, a_shift, b_split, b_cols, out, bias,
             cdiv(b_cols, WT), tiles};
     tiles += cdiv(a_cols, WT) * j.tiles_n;
   };
   jobs.n = 0;
   for (int tap = 0; tap < K; ++tap)
-    add(x, x, C_in, C_in, (K - 1 - tap) * dilation, dg, dg, C2, C2, tap * C_in * C2,
+    add(x, x, 1, C_in, C_in, (K - 1 - tap) * dilation, dg, dg, 0, C2, C2, tap * C_in * C2,
         tap == 0 ? o_dbg : -1);
-  add(act, act, C, C, 0, dresid, dskip, C, C2, o_dwo, o_dbo);
-  add(x, x, C_in, C_in, 0, dresid, dresid, C, C, o_dwr, o_dbr);
+  add(act, act, 0, C, C, 0, dresid, dskip, 1, C, C2, o_dwo, o_dbo);
+  add(x, x, 1, C_in, C_in, 0, dresid, dresid, 1, C, C, o_dwr, o_dbr);
   const int rows = cdiv(N > 0 ? N : 1, NSLICE);
-  bwd_wgrad_kernel<<<dim3(tiles, NSLICE), WNT, 0, st>>>(jobs, part, W, N, L > 0 ? L : 1, rows);
+  bwd_wgrad_kernel<T><<<dim3(tiles, NSLICE), WNT, 0, st>>>(jobs, part, W, N, L > 0 ? L : 1,
+                                                            rows);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bwd_slice_sum_kernel<<<cdiv(W, 256), 256, 0, st>>>(part, grads, W);
+  bwd_slice_sum_kernel<T><<<cdiv(W, 256), 256, 0, st>>>(part, grads, W);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch: dg (B, L, 2C), act (B, L, C), part (NSLICE, W) floats, where W is
+// the size of the gradient layout grads = [dWg (K, C_in, 2C) | dbg (2C) |
+// dWo (C, 2C) | dbo (2C) | dWr (C_in, C) | dbr (C)], stored in the inputs'
+// type.
+extern "C" int wst_fused_block_bwd_slices() { return NSLICE; }
+
+extern "C" int wst_fused_gated_block_bwd_f32(
+    const float* x, const float* dresid, const float* dskip, const float* gate_w,
+    const float* gate_b, const float* woT, const float* wgT, const float* wrT, float* dx,
+    float* grads, float* dg, float* act, float* part, int B, int L, int C_in, int C, int K,
+    int dilation, void* stream) {
+  return launch(x, dresid, dskip, gate_w, gate_b, woT, wgT, wrT, dx, grads, dg, act, part, B, L,
+                C_in, C, K, dilation, stream);
+}
+
+extern "C" int wst_fused_gated_block_bwd_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* dresid, const __nv_bfloat16* dskip,
+    const __nv_bfloat16* gate_w, const __nv_bfloat16* gate_b, const __nv_bfloat16* woT,
+    const __nv_bfloat16* wgT, const __nv_bfloat16* wrT, __nv_bfloat16* dx,
+    __nv_bfloat16* grads, float* dg, float* act, float* part, int B, int L, int C_in, int C,
+    int K, int dilation, void* stream) {
+  return launch(x, dresid, dskip, gate_w, gate_b, woT, wgT, wrT, dx, grads, dg, act, part, B, L,
+                C_in, C, K, dilation, stream);
 }

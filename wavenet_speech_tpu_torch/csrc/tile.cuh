@@ -4,10 +4,17 @@
 // 4-row x 4-channel register tile, streaming the reduction dimension through
 // shared memory KC deep: rows of activations transposed into As (KC, AS),
 // rows of weights into Bs (KC, BS).
+//
+// Tensors in device memory are float or __nv_bfloat16 (the storage type T of
+// the loaders, four values a load: 16 or 8 bytes). Shared memory, registers
+// and every product are float: a bf16 value is widened exactly as it enters
+// shared memory, and a product of two widened bf16 values is exact in float.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -25,14 +32,52 @@ constexpr int BS = 2 * CH;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// ---- storage type <-> float ------------------------------------------------
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Four consecutive values at p (16-byte aligned for float, 8 for bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  // a bf16 is the upper half of a float: widening is a shift
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+// Rounds to nearest even, as the TPU kernel's astype(bf16).
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(a, b), pack_bf16x2(c, d));
+}
+
+// v as the storage type T would hold it (the identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // As[k][r] = M[row0 + r][c0 + k], zero outside rows [0, L) and columns
 // [0, ncols). M is row-major and stored as two column blocks: columns
 // [0, split) are the rows of p0 (row length split), columns [split, ncols)
 // the rows of p1 (row length ncols - split). One block: p1 = p0,
 // split = ncols. Needs split and ncols divisible by 4.
-__device__ __forceinline__ void load_rows_t(float* As, const float* __restrict__ p0,
-                                            const float* __restrict__ p1, int split,
-                                            int row0, int c0, int L, int ncols) {
+template <typename T>
+__device__ __forceinline__ void load_rows_t(float* As, const T* __restrict__ p0,
+                                            const T* __restrict__ p1, int split, int row0,
+                                            int c0, int L, int ncols) {
   if (threadIdx.x >= TL * (KC / 4)) return;
   const int r = threadIdx.x >> 2;
   const int cg = (threadIdx.x & 3) * 4;
@@ -40,9 +85,8 @@ __device__ __forceinline__ void load_rows_t(float* As, const float* __restrict__
   const int c = c0 + cg;
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (t >= 0 && t < L && c < ncols)
-    v = c < split ? *reinterpret_cast<const float4*>(p0 + (size_t)t * split + c)
-                  : *reinterpret_cast<const float4*>(p1 + (size_t)t * (ncols - split) +
-                                                     (c - split));
+    v = c < split ? load4(p0 + (size_t)t * split + c)
+                  : load4(p1 + (size_t)t * (ncols - split) + (c - split));
   As[(cg + 0) * AS + r] = v.x;
   As[(cg + 1) * AS + r] = v.y;
   As[(cg + 2) * AS + r] = v.z;
@@ -52,19 +96,19 @@ __device__ __forceinline__ void load_rows_t(float* As, const float* __restrict__
 // Bs[k][j] = w[k0 + k][col_a + j] for j < n_a, Bs[k][CH + j] =
 // w[k0 + k][col_b + j] for j < n_b (second tile only if TWO), zero
 // elsewhere and where k0 + k >= k_max. w is row-major with row length ld.
-template <bool TWO>
-__device__ __forceinline__ void load_w_tile(float* Bs, const float* __restrict__ w, int ld,
-                                            int k0, int k_max, int col_a, int col_b,
-                                            int n_a, int n_b) {
+template <bool TWO, typename T>
+__device__ __forceinline__ void load_w_tile(float* Bs, const T* __restrict__ w, int ld, int k0,
+                                            int k_max, int col_a, int col_b, int n_a,
+                                            int n_b) {
   for (int i = threadIdx.x; i < KC * (CH / 4); i += NT) {
     const int k = i / (CH / 4);
     const int j = (i % (CH / 4)) * 4;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 b = a;
     if (k0 + k < k_max) {
-      const float* row = w + (size_t)(k0 + k) * ld;
-      if (j < n_a) a = *reinterpret_cast<const float4*>(row + col_a + j);
-      if (TWO && j < n_b) b = *reinterpret_cast<const float4*>(row + col_b + j);
+      const T* row = w + (size_t)(k0 + k) * ld;
+      if (j < n_a) a = load4(row + col_a + j);
+      if (TWO && j < n_b) b = load4(row + col_b + j);
     }
     *reinterpret_cast<float4*>(Bs + k * BS + j) = a;
     *reinterpret_cast<float4*>(Bs + k * BS + CH + j) = b;

@@ -1,11 +1,15 @@
-"""Facade: the base + CTC model pair (wavenet_speech_tpu/facade.py:82-136).
+"""Facade (wavenet_speech_tpu/facade.py): the base + CTC model pair and the
+datatype-dispatching dataset.
 
     model = Model("wavenet-ctc", cfg).init(seed=0)       # or .load_jax(tree)
     base_out, logits = model.predict(signal)               # (B, L, C) NLC
+    data = Dataset("pore", batch_size=8, seed=0)
+    batch = data.fetch("train")                            # data.Batch, numpy
 
 ``Model`` runs on ``cuda`` unless ``device`` is given, and raises when no
-CUDA device is present and none was given. ``BatchNorm1d``, ``Dataset`` and
-``Decoder`` of the JAX facade are not ported yet.
+CUDA device is present and none was given. ``BatchNorm1d`` and ``Decoder``
+of the JAX facade, and every ``Dataset`` datatype but ``pore``, are not
+ported yet (ROADMAP A8-A10).
 """
 from __future__ import annotations
 
@@ -15,7 +19,11 @@ import torch
 from torch import nn
 
 from wavenet_speech_tpu_torch.bridge import params_from_jax
+from wavenet_speech_tpu_torch.data.common import Batch
+from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModelLoader
 from wavenet_speech_tpu_torch.models import WaveNet, WaveNetClassifier
+from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
+from wavenet_speech_tpu_torch.training.trainer import param_tree
 from wavenet_speech_tpu_torch.utils.config import base_model_cfg, classifier_cfg
 from wavenet_speech_tpu_torch.utils.device import resolve_device
 
@@ -62,6 +70,33 @@ class Model(nn.Module):
         self.load_state_dict(params_from_jax(tree))
         return self
 
+    def eval_base(self) -> nn.Module:
+        """The base model in eval mode. WaveNet holds no running statistics,
+        so it is ``model_base`` itself (the JAX facade differs only for
+        raw-ctcnet's BatchNorm, not ported)."""
+        return self.model_base
+
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """A copy of the weights as the train step's tree {"base", "ctc"}."""
+        return param_tree(self.model_base, self.model_ctc)
+
+    def save(self, path: str, params=None) -> None:
+        """Save a params tree (default: this model's weights) to one torch
+        file."""
+        save_params(path, self.params() if params is None else params)
+
+    def restore(self, path: str, params_like=None):
+        """The params tree saved at ``path``, checked against ``params_like``
+        and placed on its devices. Without ``params_like`` it is checked
+        against this model's weights and also loaded into the model.
+        Returns the tree."""
+        params = restore_params(path, self.params() if params_like is None
+                                else params_like)
+        if params_like is None:
+            self.model_base.load_state_dict(params["base"])
+            self.model_ctc.load_state_dict(params["ctc"])
+        return params
+
     def predict(self, signal: torch.Tensor):
         """signal (B, L, signal_dim) -> (base_out, logits)."""
         base_out = self.model_base(signal)
@@ -70,3 +105,50 @@ class Model(nn.Module):
     def forward(self, signal: torch.Tensor) -> torch.Tensor:
         """The CTC logits (B, L // downsample, num_labels)."""
         return self.predict(signal)[1]
+
+
+class Dataset:
+    """Datatype-dispatching loader (facade.py:149-236) with the same keyword
+    defaults. ``pore`` is ported: the training stream, a separate infinite
+    validation stream on seed + 10**6, and static shapes (signals padded to
+    the longest possible, so every batch has one shape). The other
+    datatypes raise NotImplementedError."""
+
+    DATATYPES = ("pore", "gauss", "hdf5", "raw-pore", "raw-gauss", "raw-hdf5")
+
+    def __init__(self, datatype: str, dataset: Optional[str] = None, **kw):
+        if datatype not in self.DATATYPES:
+            raise ValueError(f"unknown datatype {datatype!r}")
+        if datatype != "pore":
+            raise NotImplementedError(
+                f"datatype {datatype!r} is not ported yet (ROADMAP A9: the gauss, "
+                f"raw and hdf5 loaders); the port trains on 'pore'")
+        self.datatype = datatype
+        p = dict(max_iters=kw.get("max_iters", 1000), num_epochs=kw.get("num_epochs", 1),
+                 epoch_size=kw.get("epoch_size", 1000))
+        p_valid = dict(max_iters=2 ** 62, num_epochs=2 ** 30, epoch_size=p["epoch_size"])
+        seed = kw.get("seed")
+        vseed = None if seed is None else seed + 10 ** 6
+
+        def make(pp, s):
+            return PoreModelLoader(
+                **pp, batch_size=kw.get("batch_size", 8),
+                num_levels=kw.get("num_levels", 256),
+                lengths=(kw.get("min_length", 90), kw.get("max_length", 100)),
+                pore_width=kw.get("pore_width", 4), sample_rate=kw.get("upsampling", 4),
+                currents_dict=DEFAULT_CURRENTS, sample_noise=kw.get("sample_noise", 2.0),
+                seed=s)
+
+        self.data, self.valid_data = make(p, seed), make(p_valid, vseed)
+        for ld in (self.data, self.valid_data):
+            ld.pad_to = ld.max_signal_length
+            ld.labels_pad_to = ld.max_label_length
+
+    @property
+    def signal_channels(self) -> int:
+        return self.data.signal_channels
+
+    def fetch(self, train_or_valid: str = "train") -> Batch:
+        """The next batch of a stream; StopIteration when the training
+        stream's max_iters or num_epochs is reached."""
+        return (self.valid_data if train_or_valid == "valid" else self.data).fetch()

@@ -16,6 +16,19 @@ backward launches ``csrc/fused_block_bwd.cu`` (B5), which recomputes the
 gate. ``fused_gated_block_bwd`` is that backward; its plain version is
 ``fused_gated_block_bwd_ref``.
 
+Types: float32, or bfloat16 as the TPU kernels take it (residual_block.py:
+78-94, 245-300, 382-384), one type for every tensor of a call. In bf16 the
+kernels widen each value to float32 as they load it (a product of two bf16
+values is exact in float32), sum in float32, add the biases in float32,
+round ``act`` to bf16 before the 1x1 product (forward) and store the
+outputs rounded to bf16; the backward recomputes the gate from bf16 x and
+weights, takes da, dx and the six weight gradients as float32 products of
+the widened values with float32 dg and (unrounded) act, and rounds dx and
+the summed gradients to bf16. The plain versions do the same arithmetic in
+PyTorch. A bf16 CUDA tensor goes to the bf16 kernel or raises: it is never
+upcast to the float32 kernel. ``launches`` counts float32 launches and
+``launches_bf16`` bf16 ones.
+
 Where the time goes on an H100, at the bench shape (B=8, L=4505,
 C_in=C=256, K=2): the forward is 33 GFLOP against ~115 MB moved and the
 backward 85 GFLOP against ~150 MB, so both are bound by operations (f32,
@@ -39,11 +52,15 @@ from wavenet_speech_tpu_torch.ops.activations import gated_activation
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip;
 # B, L, C_in, C, K, dilation; stream
-_SIGNATURES = {"wst_fused_gated_block_f32": [_P] * 9 + [_I] * 6 + [_P]}
+_SIGNATURES = {f"wst_fused_gated_block_{t}": [_P] * 9 + [_I] * 6 + [_P]
+               for t in ("f32", "bf16")}
 # x, dresid, dskip, gate_w, gate_b, out_w^T, gate_w^T, res_w^T, dx, grads,
 # dg, act, part; B, L, C_in, C, K, dilation; stream
-_BWD_SIGNATURES = {"wst_fused_gated_block_bwd_f32": [_P] * 13 + [_I] * 6 + [_P],
+_BWD_SIGNATURES = {**{f"wst_fused_gated_block_bwd_{t}": [_P] * 13 + [_I] * 6 + [_P]
+                      for t in ("f32", "bf16")},
                    "wst_fused_block_bwd_slices": []}
+# the storage types the kernels take: the C entry points' suffix
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_TAPS = 8  # gate kernel widths the backward kernel takes
 
 
@@ -55,7 +72,13 @@ def fused_gated_block_ref(x, gate_w, gate_b, out_w, out_b, res_w, res_b,
 
     x: (B, L, C_in); gate_w: (K, C_in, 2C); gate_b: (2C,); out_w: (C, 2C);
     out_b: (2C,); res_w: (C_in, C); res_b: (C,). Returns (resid, skip),
-    each (B, L, C)."""
+    each (B, L, C), in x's type. In bf16, the kernel's arithmetic: widened
+    to float32, ``act`` rounded to bf16 before the 1x1 product, the outputs
+    rounded to bf16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, gate_w, gate_b, out_w, out_b, res_w, res_b = (
+            t.float() for t in (x, gate_w, gate_b, out_w, out_b, res_w, res_b))
     K = gate_w.shape[0]
     L = x.shape[1]
     C = res_w.shape[1]
@@ -63,9 +86,11 @@ def fused_gated_block_ref(x, gate_w, gate_b, out_w, out_b, res_w, res_b,
     g = gate_b + sum(xp[:, j * dilation: j * dilation + L] @ gate_w[j]
                      for j in range(K))
     act = gated_activation(g[..., :C], g[..., C:])
+    if dtype == torch.bfloat16:  # the TPU kernel's act.astype(x.dtype)
+        act = act.to(dtype).float()
     o = act @ out_w + out_b
     resid = o[..., :C] + x @ res_w + res_b
-    return resid, o[..., C:]
+    return resid.to(dtype), o[..., C:].to(dtype)
 
 
 def _check_args(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation,
@@ -80,12 +105,12 @@ def _check_args(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation,
         if t.device != x.device:
             raise ValueError(f"fused_gated_block: {name} is on {t.device}, "
                              f"x on {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_gated_block: {name} must be float32, "
-                             f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if t.dtype not in _SUFFIX or t.dtype != x.dtype:
+            raise ValueError(f"fused_gated_block: {name} is {t.dtype}; every "
+                             f"tensor must be float32, or every one bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % (4 * t.element_size()):
             raise ValueError(f"fused_gated_block: {name} must be contiguous "
-                             f"and 16-byte aligned")
+                             f"and aligned to 4 values")
     if x.dim() != 3 or gate_w.dim() != 3:
         raise ValueError("fused_gated_block: x must be (B, L, C_in) and "
                          "gate_w (K, C_in, 2C)")
@@ -116,16 +141,24 @@ def _launch_fwd(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
     resid = torch.empty((B, L, C), device=x.device, dtype=x.dtype)
     skip = torch.empty_like(resid)
     lib = _build.library("fused_block", _SIGNATURES)
+    suffix = _SUFFIX[x.dtype]
     with torch.cuda.device(x.device):
-        rc = lib.wst_fused_gated_block_f32(
+        rc = getattr(lib, f"wst_fused_gated_block_{suffix}")(
             x.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
             out_w.data_ptr(), out_b.data_ptr(), res_w.data_ptr(),
             res_b.data_ptr(), resid.data_ptr(), skip.data_ptr(),
             B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block")
-    fused_gated_block.launches += 1
+    _count(fused_gated_block, suffix)
     return resid, skip
+
+
+def _count(wrapper, suffix: str) -> None:
+    if suffix == "f32":
+        wrapper.launches += 1
+    else:
+        wrapper.launches_bf16 += 1
 
 
 class _FusedGatedBlock(torch.autograd.Function):
@@ -154,8 +187,9 @@ def fused_gated_block(x, gate_w, gate_b, out_w, out_b, res_w, res_b,
     """Fused causal gated residual block; see the module docstring.
 
     On a CPU tensor this is ``fused_gated_block_ref``. On a CUDA tensor it
-    launches the kernels (float32, contiguous) or raises; it never falls
-    back. ``fused_gated_block.launches`` counts forward launches."""
+    launches the kernels (float32 or bfloat16, contiguous) or raises; it
+    never falls back. ``fused_gated_block.launches`` counts float32 forward
+    launches, ``fused_gated_block.launches_bf16`` bf16 ones."""
     if x.device.type == "cpu":
         return fused_gated_block_ref(x, gate_w, gate_b, out_w, out_b, res_w,
                                      res_b, dilation)
@@ -165,7 +199,7 @@ def fused_gated_block(x, gate_w, gate_b, out_w, out_b, res_w, res_b,
                                   dilation)
 
 
-fused_gated_block.launches = 0
+fused_gated_block.launches = fused_gated_block.launches_bf16 = 0
 
 
 def fused_gated_block_bwd_ref(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
@@ -173,7 +207,13 @@ def fused_gated_block_bwd_ref(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
     """The plain version of B5: the math of ``_bwd_kernel``
     (residual_block.py:201-300) with the gate recomputed over the whole
     sequence. Returns (dx, d gate_w, d gate_b, d out_w, d out_b, d res_w,
-    d res_b), shaped as the forward's arguments."""
+    d res_b), shaped as the forward's arguments. In bf16, the kernel's
+    arithmetic: every input widened to float32, the results rounded to bf16
+    (``_pallas_bwd``'s casts, residual_block.py:382-384)."""
+    if x.dtype == torch.bfloat16:
+        grads = fused_gated_block_bwd_ref(*(t.float() for t in (
+            x, gate_w, gate_b, out_w, res_w, dresid, dskip)), dilation)
+        return tuple(g.to(torch.bfloat16) for g in grads)
     K, C_in, C2 = gate_w.shape
     B, L, _ = x.shape
     C = res_w.shape[1]
@@ -201,8 +241,9 @@ def fused_gated_block_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
                           dilation: int):
     """B5: the gradients of ``fused_gated_block`` (see
     ``fused_gated_block_bwd_ref``). On a CPU tensor this is the plain
-    version; on a CUDA tensor it launches the kernel or raises.
-    ``fused_gated_block_bwd.launches`` counts kernel launches."""
+    version; on a CUDA tensor it launches the kernel (float32 or bfloat16)
+    or raises. ``fused_gated_block_bwd.launches`` counts float32 launches,
+    ``fused_gated_block_bwd.launches_bf16`` bf16 ones."""
     if x.device.type == "cpu":
         return fused_gated_block_bwd_ref(x, gate_w, gate_b, out_w, res_w, dresid,
                                          dskip, dilation)
@@ -211,27 +252,29 @@ def fused_gated_block_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
     B, L, C_in, C, K = _check_args(x, gate_w, gate_b, out_w, None, res_w, None,
                                    dilation, dresid=dresid, dskip=dskip)
     lib = _build.library("fused_block_bwd", _BWD_SIGNATURES)
+    suffix = _SUFFIX[x.dtype]
     dev = x.device
-    empty = lambda *s: torch.empty(s, device=dev)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)  # scratch
     sizes = (K * C_in * 2 * C, 2 * C, C * 2 * C, 2 * C, C_in * C, C)
-    grads = empty(sum(sizes))
-    dx, dg, act = empty(B, L, C_in), empty(B, L, 2 * C), empty(B, L, C)
+    grads = torch.empty(sum(sizes), device=dev, dtype=x.dtype)
+    dx = torch.empty((B, L, C_in), device=dev, dtype=x.dtype)
+    dg, act = empty(B, L, 2 * C), empty(B, L, C)
     part = empty(lib.wst_fused_block_bwd_slices(), grads.numel())
     woT = out_w.T.contiguous()
     wgT = gate_w.transpose(1, 2).contiguous()
     wrT = res_w.T.contiguous()
     with torch.cuda.device(dev):
-        rc = lib.wst_fused_gated_block_bwd_f32(
+        rc = getattr(lib, f"wst_fused_gated_block_bwd_{suffix}")(
             x.data_ptr(), dresid.data_ptr(), dskip.data_ptr(), gate_w.data_ptr(),
             gate_b.data_ptr(), woT.data_ptr(), wgT.data_ptr(), wrT.data_ptr(),
             dx.data_ptr(), grads.data_ptr(), dg.data_ptr(), act.data_ptr(),
             part.data_ptr(), B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block_bwd")
-    fused_gated_block_bwd.launches += 1
+    _count(fused_gated_block_bwd, suffix)
     dwg, dbg, dwo, dbo, dwr, dbr = torch.split(grads, sizes)
     return (dx, dwg.view(K, C_in, 2 * C), dbg, dwo.view(C, 2 * C), dbo,
             dwr.view(C_in, C), dbr)
 
 
-fused_gated_block_bwd.launches = 0
+fused_gated_block_bwd.launches = fused_gated_block_bwd.launches_bf16 = 0

@@ -12,10 +12,17 @@ On the card the causal blocks run their forward and backward kernels (B4,
 B5) and the CTC its alpha and beta kernels (B1, B2); on the CPU the same
 step runs their plain versions.
 
-Not ported yet: ``compute_dtype`` other than None (the bf16 variants of B4
-and B5, ROADMAP B), ``make_ctc_train_step`` (with RawCTCNet, ROADMAP A8),
-and the JAX options ``donate`` and ``scan_unroll``, which have no meaning
-in an eager loop.
+``compute_dtype=torch.bfloat16`` is the JAX package's mixed precision
+(trainer.py:42-47, 138-145): the params and the one-hot signal are cast to
+bf16 inside the differentiated function, so the models run in bf16 (the
+causal blocks on the bf16 forms of B4 and B5) and the gradients reach the
+float32 master params through the cast; the losses are computed in float32
+(``training/loss.py``, ``ops/ctc.py``), and the optimizer state stays
+float32.
+
+Not ported yet: ``make_ctc_train_step`` (with RawCTCNet, ROADMAP A8), and
+the JAX options ``donate`` and ``scan_unroll``, which have no meaning in an
+eager loop.
 """
 from __future__ import annotations
 
@@ -80,13 +87,24 @@ def _batch_to(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _cast(tree, dtype):
+    """Floating leaves cast to dtype (trainer.py:42-47); None leaves the
+    tree as it is."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
 def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
-                    logit_length_fn):
-    """(total, xe, ctc) of the joint objective (trainer.py:127-163)."""
+                    logit_length_fn, compute_dtype):
+    """(total, xe, ctc) of the joint objective (trainer.py:127-163), the
+    models run in compute_dtype (None: the params' own)."""
     signal = batch["signal"]
     if signal.dim() == 2:
         # quantised levels shipped from the host: one-hot on the device
         signal = nn.functional.one_hot(signal.long(), base_model.in_dim).float()
+    signal = _cast(signal, compute_dtype)
+    params = _cast(params, compute_dtype)
     signal_pred = functional_call(base_model, params["base"], (signal,))
     # the classifier reads the WaveNet's output, as in inference
     logits = functional_call(ctc_model, params["ctc"], (signal_pred,))
@@ -98,13 +116,6 @@ def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
                              batch["label_lengths"], **kwargs)
     total = ctc if xe is None else loss.joint_weight * xe + loss.ctc_weight * ctc
     return total, (torch.zeros((), device=ctc.device) if xe is None else xe), ctc
-
-
-def _no_bf16_yet(compute_dtype):
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype must be None: the bf16 variants of the fused block "
-            "kernels (B4, B5) are not ported yet (ROADMAP B)")
 
 
 def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
@@ -120,6 +131,9 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
     (signal lengths -> logit lengths, the length-aware mode),
     "signal_lengths"; arrays or tensors, moved to the params' device.
 
+    compute_dtype: None (the params' float32) or torch.bfloat16, the JAX
+    package's mixed precision (see the module docstring).
+
     A step whose loss or gradients hold a non-finite value is skipped:
     params and optimizer state carry through unchanged, the step count
     still advances, and ``skipped_nonfinite`` is 1.
@@ -129,14 +143,13 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
     metrics then come back stacked (K,).
 
     Returns step_fn(state, batch) -> (state, metrics)."""
-    _no_bf16_yet(compute_dtype)
     loss = loss or JointLoss("joint")
 
     def step_fn(state: TrainState, batch) -> tuple:
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
         total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params, batch,
-                                         logit_length_fn)
+                                         logit_length_fn, compute_dtype)
         # the last block's residual projection reaches no output: zero grads
         grads = tree_unflatten(state.params, list(torch.autograd.grad(
             total, leaves, allow_unused=True, materialize_grads=True)))
@@ -174,15 +187,15 @@ def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
                    loss: Optional[JointLoss] = None, compute_dtype=None,
                    logit_length_fn: Optional[Callable] = None):
     """The validation step (trainer.py:277-306): the train step's metrics
-    and weighting, no update. Returns eval_fn(params, batch) -> metrics."""
-    _no_bf16_yet(compute_dtype)
+    and weighting, no update, in compute_dtype as the train step. Returns
+    eval_fn(params, batch) -> metrics."""
     loss = loss or JointLoss("joint")
 
     def eval_fn(params, batch) -> Metrics:
         batch = _batch_to(batch, tree_leaves(params)[0].device)
         with torch.no_grad():
             total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params,
-                                             batch, logit_length_fn)
+                                             batch, logit_length_fn, compute_dtype)
         return {"xe_loss": xe, "ctc_loss": ctc, "total_loss": total}
 
     return eval_fn

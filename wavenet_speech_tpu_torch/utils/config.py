@@ -1,6 +1,7 @@
-"""Model config readers, copied from wavenet_speech_tpu/utils/config.py:24-55
+"""The JSON config system, copied from wavenet_speech_tpu/utils/config.py
 (pure Python; the port cannot import that package, whose __init__ imports
-jax).
+jax): the readers of the model and training blocks, with the same
+defaults.
 
 Accepts both reference layer-spec styles:
   * explicit "layers": [[c_in, c_out, k, d], ...]
@@ -8,7 +9,18 @@ Accepts both reference layer-spec styles:
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Tuple
+
+
+def json_to_config(json_path: str) -> Dict[str, Any]:
+    with open(json_path, "r") as jf:
+        return json.load(jf)
+
+
+def config_to_json(cfg: Dict[str, Any], json_path: str) -> None:
+    with open(json_path, "w") as jf:
+        json.dump(cfg, jf, indent=4, sort_keys=True)
 
 
 def layers_from_cfg(cfg: Dict[str, Any], channels: int) -> Tuple[Tuple[int, int, int, int], ...]:
@@ -43,3 +55,28 @@ def classifier_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "out_dim": m.get("out_dim", signal_dim),
         "in_dim": m.get("in_dim", signal_dim),
     }
+
+
+def training_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The "training" block with the JAX package's defaults
+    (utils/config.py:58-78)."""
+    t = dict(cfg.get("training", {}))
+    t.setdefault("batch_size", 8)
+    t.setdefault("num_epochs", 1)
+    t.setdefault("max_iters", 1000)
+    t.setdefault("epoch_size", 1000)
+    t.setdefault("nworkers", 1)
+    t.setdefault("min_sample_length", 90)
+    t.setdefault("max_sample_length", 100)
+    t.setdefault("print_every", 25)
+    t.setdefault("save_every", 1000)
+    t.setdefault("save_dir", "./runs/run/")
+    t.setdefault("training_data", None)
+    t.setdefault("validation_data", None)
+    t.setdefault("restore", None)
+    opt = t.setdefault("optim", {})
+    opt.setdefault("type", "adam")
+    opt.setdefault("learning_rate", 1e-4)
+    opt.setdefault("wd", 0.0)
+    opt.setdefault("max_grad_norm", None)
+    return t
