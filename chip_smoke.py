@@ -58,6 +58,23 @@ reads of L=4505):
      ran 15 times a train step and a validation forward and B5-bf16 15
      times a train step; then holds both bf16 kernels against their plain
      versions at the loop's 15 blocks and its shape (L=1090).
+  8. trains on 2 ranks of one torch.distributed world (run_ranks; gloo,
+     both on this card, the P2P staged through host memory), the bench
+     model and batch padded to L=4608, length-aware (T=1152, 1126 live
+     frames), Adagrad 3e-5, TF32 off, res_w scaled as in 4. SP on a
+     (data=1, seq=2) mesh: (b) with the depth cut to 3+2 blocks the loss
+     within 1e-5 and every gradient leaf within 1e-4 (relative norm) of the
+     single-device kernel step; (c) at full depth the loss within 1e-4 and
+     the gradients within SENS_FACTOR x the cuDNN composite's distance; the
+     main path, 3 SP train steps, each launching B4 30, B5 30, B3-fwd 1 and
+     B3-bwd 1 times a rank and no whole-sequence B1/B2; (a) each rank's B3
+     calls, with the carry they received and t_offset 0 or 576, against
+     the plain loops, and the chained segments against B1/B2 on the whole
+     sequence; (e) the step's time a rank, its halo exchanges, CTC carries
+     and gradient all-reduce, B3's times. DP on a (data=2, seq=1) mesh:
+     (d) 3 steps, params bit-identical across ranks, updates within
+     SENS_FACTOR x the cuDNN composite's distance from 3 single-device
+     steps. With 2 or more cards it runs again on NCCL, one rank a card.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -66,6 +83,7 @@ the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -79,6 +97,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from wavenet_speech_tpu_torch import cli
@@ -94,20 +113,21 @@ from wavenet_speech_tpu_torch.ops import _build, ctc_scan
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
                                               ctc_loss)
-from wavenet_speech_tpu_torch.ops.ctc_scan import (ctc_bwd, ctc_bwd_ref, ctc_fwd,
-                                                   ctc_fwd_ref)
+from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
+from wavenet_speech_tpu_torch.parallel import (collectives, ctc_sharded, make_mesh,
+                                               run_ranks, shard_batch)
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
-                                               param_tree)
+                                               param_tree, trainer)
 from wavenet_speech_tpu_torch.training.checkpoint import (save_checkpoint,
                                                           wait_for_async_saves)
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
-                                                       global_norm_safe)
-from wavenet_speech_tpu_torch.utils.tree import tree_leaves
+                                                       all_reduce_grads, global_norm_safe)
+from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map
 
 SEED = 0
 B, L = 8, 4505                       # bench.py:105-149 batch and read length
@@ -186,6 +206,16 @@ def cfg_full_width():
                        "downsample": POOL, "num_labels": LABELS}}}
 
 
+def scale_res_w(model):
+    """Every block's res_w scaled by 1/sqrt(2), which keeps the residual
+    stream's scale (see phase 4)."""
+    with torch.no_grad():
+        for blk in [*model.model_base.stack.blocks, model.model_ctc.input_block,
+                    *model.model_ctc.stack.blocks]:
+            blk.res_w.mul_(0.5 ** 0.5)
+    return model
+
+
 def cuda_ms(fn, reps, warmup=1):
     """Mean device time of fn() over reps launches, after warm-up."""
     for _ in range(warmup):
@@ -206,6 +236,12 @@ def host_ms(fn, reps=1):
         out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def bound_of(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the float32 operations over the
+    peak rate and the bytes over the memory rate."""
+    return max((ops / PEAK_F32_FLOPS * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
 
 
 def onehot_reads(rng, n, length, levels):
@@ -249,6 +285,31 @@ def cudnn_block(x, gw, gb, ow, ob, rw, rb, d):
     return o[..., :C] + torch.matmul(x, rw) + rb, o[..., C:]
 
 
+def hold_b4(d, got, want):
+    """B4's outputs within B4_RTOL |plain| + B4_ATOL max|plain|; returns
+    (max abs error, max|plain|)."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        bad = ((g - w).abs() > B4_RTOL * w.abs() + B4_ATOL * scale).sum()
+        if bad:
+            raise AssertionError(f"B4 d={d}: {int(bad)} elements beyond tolerance; "
+                                 f"max_abs_err {err:.3e}, max|plain| {scale:.3e}")
+    return err, scale
+
+
+def b4_work(x, gate_w):
+    """B4's float32 operations and bytes on x (B, L, C_in): each input read
+    once, each output written once."""
+    Bx, Lx, C_in = x.shape
+    K, _, C2 = gate_w.shape
+    C = C2 // 2
+    flops = 2 * Bx * Lx * (K * C_in * C2 + C * C2 + C_in * C)
+    nbytes = 4 * (Bx * Lx * C_in + 2 * Bx * Lx * C
+                  + K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C)
+    return flops, nbytes
+
+
 def phase_fused_block(model, x_entry):
     """B4 against its plain version on the input each of the 30 blocks gets
     in the forward (the plain path's activations)."""
@@ -260,13 +321,7 @@ def phase_fused_block(model, x_entry):
         want = fused_gated_block_ref(x, *a, d)
         lib = cudnn_block(x, *a, d)
         torch.cuda.synchronize()
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        scale = max(float(w.abs().max()) for w in want)
-        for g, w in zip(got, want):
-            bad = ((g - w).abs() > B4_RTOL * w.abs() + B4_ATOL * scale).sum()
-            if bad:
-                raise AssertionError(f"B4 d={d}: {int(bad)} elements beyond tolerance; "
-                                     f"max_abs_err {err:.3e}, max|plain| {scale:.3e}")
+        err, scale = hold_b4(d, got, want)
         lib_err = max(float((g - w).abs().max()) for g, w in zip(lib, want))
         rows.append(dict(
             d=d, err=err, lib_err=lib_err, scale=scale,
@@ -274,14 +329,8 @@ def phase_fused_block(model, x_entry):
             plain_ms=cuda_ms(lambda: fused_gated_block_ref(x, *a, d), 5),
             library_ms=cuda_ms(lambda: cudnn_block(x, *a, d), 5)))
         x = want[0]
-    Bx, Lx, C_in = x_entry.shape
-    K, _, C2 = model.model_base.stack.blocks[0].gate_w.shape
-    C = C2 // 2
-    flops = 2 * Bx * Lx * (K * C_in * C2 + C * C2 + C_in * C)
-    nbytes = 4 * (Bx * Lx * C_in + 2 * Bx * Lx * C
-                  + K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C)
-    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    flops, nbytes = b4_work(x_entry, model.model_base.stack.blocks[0].gate_w)
+    bound_ms, bound_by = bound_of(flops, nbytes)
     for r in rows:
         log(f"  B4 d={r['d']:3d}  max|plain|={r['scale']:.3e} max_abs_err={r['err']:.3e} "
             f"(library's {r['lib_err']:.3e})  kernel_ms={r['ms']:.4f} "
@@ -312,8 +361,7 @@ def phase_beam(lp, lengths, S):
     frames = int(lengths.clamp(max=T).sum())
     ops = frames * N * (4 + math.ceil(math.log2(N)))  # logaddexp + a selection
     nbytes = 4 * (Bx * T * C + Bx + 2 * Bx * BEAM_WIDTH * S + 3 * Bx * BEAM_WIDTH)
-    bound_ms = max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = bound_of(ops, nbytes)
     log(f"B6 ctc_beam: {live} live beam rows equal (prefixes, lengths, times), "
         f"max score error {err:.3e} (tolerance {BEAM_SCORE_ATOL}); "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} "
@@ -364,6 +412,7 @@ def reset_counts():
     fused_gated_block.launches = fused_gated_block_bwd.launches = 0
     fused_gated_block.launches_bf16 = fused_gated_block_bwd.launches_bf16 = 0
     ctc_fwd.launches = ctc_bwd.launches = beam_search_kernel.launches = 0
+    ctc_fwd.launches_segment = ctc_bwd.launches_segment = 0
 
 
 def read_counts():
@@ -372,6 +421,8 @@ def read_counts():
             "fused_gated_block_bf16": fused_gated_block.launches_bf16,
             "fused_gated_block_bwd_bf16": fused_gated_block_bwd.launches_bf16,
             "ctc_alpha": ctc_fwd.launches, "ctc_beta": ctc_bwd.launches,
+            "ctc_alpha_segment": ctc_fwd.launches_segment,
+            "ctc_beta_segment": ctc_bwd.launches_segment,
             "ctc_beam": beam_search_kernel.launches}
 
 
@@ -470,6 +521,39 @@ def cudnn_block_bwd(x, w, d, dr, ds):
 B5_OUTPUTS = ("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr")
 
 
+def hold_b5(d, got, want):
+    """B5's outputs within B4_RTOL |plain| + atol max|plain| (B4_ATOL for
+    dx, B5_WGRAD_ATOL for the weight and bias gradients); returns (max abs
+    errors, max|plain|s), one an output."""
+    errs, scales = [], []
+    for name, g, p in zip(B5_OUTPUTS, got, want):
+        scale = float(p.abs().max())
+        err = float((g - p).abs().max())
+        atol = B4_ATOL if name == "dx" else B5_WGRAD_ATOL
+        bad = int(((g - p).abs() > B4_RTOL * p.abs() + atol * scale).sum())
+        if bad:
+            raise AssertionError(f"B5 d={d} {name}: {bad} elements beyond tolerance; "
+                                 f"max_abs_err {err:.3e}, max|plain| {scale:.3e}")
+        errs.append(err)
+        scales.append(scale)
+    return errs, scales
+
+
+def b5_work(x, gate_w):
+    """B5's float32 operations and bytes on x (B, L, C_in)."""
+    Bx, Lx, C_in = x.shape
+    K, _, C2 = gate_w.shape
+    C = C2 // 2
+    n = Bx * Lx
+    flops = 2 * n * (K * C_in * C2 + C2 * C          # gate recompute, da
+                     + K * C2 * C_in + C * C_in      # dx
+                     + K * C_in * C2 + C * C2 + C_in * C)  # weight gradients
+    grads_out = K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C
+    nbytes = 4 * (n * (C_in + 2 * C + C_in)          # x, dresid, dskip in; dx out
+                  + K * C_in * C2 + C2 + C * C2 + C_in * C + grads_out)
+    return flops, nbytes
+
+
 def phase_fused_block_bwd(blocks_io):
     """B5 against its plain version at each of the 30 dilations, on the
     inputs and cotangents of the real backward."""
@@ -480,35 +564,15 @@ def phase_fused_block_bwd(blocks_io):
         lib_fn = cudnn_block_bwd(x, w, d, dr, ds)
         lib = lib_fn()
         torch.cuda.synchronize()
-        errs, lib_errs, scales = [], [], []
-        for name, g, p, c in zip(B5_OUTPUTS, got, want, lib):
-            scale = float(p.abs().max())
-            err = float((g - p).abs().max())
-            atol = B4_ATOL if name == "dx" else B5_WGRAD_ATOL
-            bad = int(((g - p).abs() > B4_RTOL * p.abs() + atol * scale).sum())
-            if bad:
-                raise AssertionError(f"B5 d={d} {name}: {bad} elements beyond tolerance; "
-                                     f"max_abs_err {err:.3e}, max|plain| {scale:.3e}")
-            errs.append(err)
-            lib_errs.append(float((c - p).abs().max()))
-            scales.append(scale)
+        errs, scales = hold_b5(d, got, want)
+        lib_errs = [float((c - p).abs().max()) for c, p in zip(lib, want)]
         rows.append(dict(
             d=d, errs=errs, lib_errs=lib_errs, scales=scales,
             ms=cuda_ms(lambda: fused_gated_block_bwd(x, *w, dr, ds, d), 3),
             plain_ms=cuda_ms(lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d), 3),
             library_ms=cuda_ms(lib_fn, 3)))
-    Bx, Lx, C_in = blocks_io[0][0].shape
-    K, _, C2 = blocks_io[0][1][0].shape
-    C = C2 // 2
-    n = Bx * Lx
-    flops = 2 * n * (K * C_in * C2 + C2 * C          # gate recompute, da
-                     + K * C2 * C_in + C * C_in      # dx
-                     + K * C_in * C2 + C * C2 + C_in * C)  # weight gradients
-    grads_out = K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C
-    nbytes = 4 * (n * (C_in + 2 * C + C_in)          # x, dresid, dskip in; dx out
-                  + K * C_in * C2 + C2 + C * C2 + C_in * C + grads_out)
-    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    flops, nbytes = b5_work(blocks_io[0][0], blocks_io[0][1][0])
+    bound_ms, bound_by = bound_of(flops, nbytes)
     for r in rows:
         log(f"  B5 d={r['d']:3d} max_abs_err/max|plain| "
             + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, e, s in zip(B5_OUTPUTS, r["errs"],
@@ -589,8 +653,7 @@ def phase_ctc(lp, skip, logits, batch):
     for name, ms, plain_ms, lib_ms, ops, nbytes, err in (
             ("B1 ctc_alpha", ms1, plain_fwd_ms, lib_fwd_ms, ops1, bytes1, err1),
             ("B2 ctc_beta", ms2, plain_bwd_ms, lib_bwd_ms, ops2, bytes2, err2)):
-        bound_ms = max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        bound_ms, bound_by = bound_of(ops, nbytes)
         log(f"{name}: T={T} B={Bx} J={J}; max_abs_err={err:.3e}; kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.1f} library_ms={lib_ms:.4f} (F.ctc_loss "
             f"{'forward' if 'alpha' in name else 'backward'}) bound_ms={bound_ms:.6f} "
@@ -736,10 +799,7 @@ def run_training(dev):
     batch = bench_batch(dev)
     model = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
     phase_grad_ratio(model, batch, "port init")
-    with torch.no_grad():      # the stream's scale kept, as in phase 4
-        for blk in [*model.model_base.stack.blocks, model.model_ctc.input_block,
-                    *model.model_ctc.stack.blocks]:
-            blk.res_w.mul_(0.5 ** 0.5)
+    scale_res_w(model)         # the stream's scale kept, as in phase 4
     phase_grad_ratio(model, batch, "scaled res_w")
     blocks_io, logits, lp_ext, skip = capture_backward(model, batch)
     b5 = phase_fused_block_bwd(blocks_io)
@@ -768,10 +828,11 @@ def step_grads(dtype, loss=None):
     return grads
 
 
-def capture_blocks(model, batch, dtype, loss=None, logit_length_fn=None):
+def capture_blocks(model, batch, dtype, loss=None, logit_length_fn=None, mesh=None):
     """The plain forward and backward of the train step's objective, the
-    models run in dtype through the step's cast: each causal block's input,
-    weights, dilation and output cotangents."""
+    models run in dtype through the step's cast (with a mesh, on this
+    rank's shard, every rank calling): each causal block's input, weights,
+    dilation and output cotangents."""
     rec = []
 
     def recorder(x, *w_and_d):
@@ -785,7 +846,7 @@ def capture_blocks(model, batch, dtype, loss=None, logit_length_fn=None):
     with causal_blocks_as(recorder), ctc_plain():
         total, _, _ = _forward_losses(model.model_base, model.model_ctc,
                                       loss or JointLoss("joint"), params, batch,
-                                      logit_length_fn, dtype)
+                                      logit_length_fn, dtype, mesh)
         outs = [t for *_, r, s in rec for t in (r, s)]
         cots = torch.autograd.grad(total, outs, allow_unused=True, materialize_grads=True)
     return [(x, w, d, cots[2 * i], cots[2 * i + 1]) for i, (x, w, d, _, _) in enumerate(rec)]
@@ -1030,10 +1091,7 @@ def run_training_bf16(dev):
     batch = bench_batch(dev)
     model = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
     phase_bf16_grads(model, batch, "port init")
-    with torch.no_grad():      # the stream's scale kept, as in phase 4
-        for blk in [*model.model_base.stack.blocks, model.model_ctc.input_block,
-                    *model.model_ctc.stack.blocks]:
-            blk.res_w.mul_(0.5 ** 0.5)
+    scale_res_w(model)         # the stream's scale kept, as in phase 4
     phase_bf16_grads(model, batch, "scaled res_w")
     blocks_io = capture_blocks(model, batch, BF16)
     kernels = phase_bf16_kernels(blocks_io)
@@ -1153,6 +1211,408 @@ def cli_parts(cfg, dev, ckpt_dir):
         f"bf16 train step {step_ms:.3f} ms ({n / step_ms * 1e3:.0f} samples/s), validation "
         f"forward {eval_ms:.3f} ms, async checkpoint's host copy {save_ms:.3f} ms")
 
+# ---- 8. DP and SP over torch.distributed ---------------------------------------
+
+SP_RANKS = 2
+SP_L = 4608                  # the bench reads padded to a multiple of seq x pool x 2
+SP_CUT = ([1, 2, 4], [1, 2])  # (b): the depth cut to 3+2 blocks
+# (b): SP against the single-device kernel step at the cut depth: the same
+# sums in another order (halo windows, shorter shards, a two-term
+# all-reduce), which the cut stack barely amplifies
+SP_LOSS_RTOL, SP_LEAF_RTOL = 1e-5, 1e-4
+SP_FULL_LOSS_RTOL = 1e-4     # (c): full depth, res_w scaled
+SP_STEPS_TIMED = 3
+
+
+def logit_frames(signal_lengths):
+    """The length-aware mode's logit lengths (the classifier's pool)."""
+    return signal_lengths // POOL
+
+
+def sp_batch(dev):
+    """The bench batch (bench_batch) padded with zero frames to SP_L, its
+    signal_lengths L: 1126 live logit frames of 1152."""
+    b = bench_batch(dev)
+    return {**b, "signal": F.pad(b["signal"], (0, 0, 0, SP_L - L))}
+
+
+def sp_model(dev, dils=None):
+    """The bench model from the seed (the same weights in every process),
+    res_w scaled as in phase 4; dils = (WaveNet, classifier) dilations cut
+    the depth."""
+    cfg = cfg_full_width()
+    if dils is not None:
+        cfg["model"]["base"]["dilations"], cfg["model"]["classifier"]["dilations"] = dils
+    return scale_res_w(Model("wavenet-ctc", cfg, device=dev).init(SEED))
+
+
+def objective_grads(model, batch, mesh=None):
+    """The train step's objective (joint, length-aware) and its gradients,
+    on one device or, with a mesh, on this rank's shard with the gradients
+    summed over the ranks, as the step computes them."""
+    params = model.params()
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    total, _, _ = _forward_losses(model.model_base, model.model_ctc, JointLoss("joint"),
+                                  params, batch, logit_frames, None, mesh)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+    return float(total.detach()), [g.detach() for g in all_reduce_grads(list(grads), mesh)]
+
+
+class Recorder:
+    """fn, with each call's (args, outputs) appended to calls. Its
+    attributes are fn's, so fn's launch counts stay right while the
+    recorder stands in its place."""
+
+    def __init__(self, fn, calls):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "calls", calls)
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        detach = lambda ts: tuple(t.detach() if torch.is_tensor(t) else t for t in ts)
+        self.calls.append((detach(args), detach(out)))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+@contextlib.contextmanager
+def record_ctc():
+    """Record every ctc_fwd / ctc_bwd call (under SP B3's, with the carry;
+    else B1's and B2's): (args, outputs)."""
+    rec = {"fwd": [], "bwd": []}
+    with mock.patch.multiple(ctc_scan, ctc_fwd=Recorder(ctc_fwd, rec["fwd"]),
+                             ctc_bwd=Recorder(ctc_bwd, rec["bwd"])):
+        yield rec
+
+
+def one_rank_at_a_time(mesh, fn):
+    """fn() on each rank in turn (the ranks share the card), barriers
+    between; returns this rank's result."""
+    out = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            out = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def check_ctc(rec, mesh, name):
+    """(a) on this rank: the first step's CTC calls (B3: with the carry
+    they received and their t_offset; B1/B2 under DP) against the plain
+    loops on the same inputs; their times (one rank at a time) and
+    bounds."""
+    (fa, (ll, alphas, a_out)), (ba, (grad, lpb_out)) = rec["fwd"][0], rec["bwd"][0]
+
+    def run():
+        f_ms, want = host_ms(lambda: ctc_fwd_ref(*fa))
+        b_ms, wantb = host_ms(lambda: ctc_bwd_ref(*ba))
+        return (f_ms, want, b_ms, wantb, cuda_ms(lambda: ctc_fwd(*fa), 5),
+                cuda_ms(lambda: ctc_bwd(*ba), 5))
+
+    plain_f, want, plain_b, wantb, ms_f, ms_b = one_rank_at_a_time(mesh, run)
+    err_f = max(check_close(f"{name}-fwd {n}", g, w, CTC_RTOL, CTC_ATOL)
+                for n, g, w in zip(("ll", "alphas", "alpha_out"), (ll, alphas, a_out), want))
+    err_b = max(check_close(f"{name}-bwd grad", grad, wantb[0], CTC_GRAD_RTOL, CTC_GRAD_ATOL),
+                check_close(f"{name}-bwd lpb_out", lpb_out, wantb[1], CTC_RTOL, CTC_ATOL))
+    lp, lens = fa[0], fa[2]
+    t_offset = fa[5] if len(fa) > 5 else 0
+    Tl, Bx, J = lp.shape
+    live = int((lens.long() - t_offset).clamp(0, Tl).sum()) * J   # this run's live states
+    out = {}
+    # as phase 5's B1/B2: 14 operations a live state (fwd), 18 (bwd); each
+    # (T, B, J) tensor and each carry read or written once
+    for key, ms, plain_ms, err, ops, nbytes in (
+            ("fwd", ms_f, plain_f, err_f, 14 * live, 4 * (2 * Tl * Bx * J + 3 * Bx * J + 3 * Bx)),
+            ("bwd", ms_b, plain_b, err_b, 18 * live, 4 * (3 * Tl * Bx * J + 3 * Bx * J + 4 * Bx))):
+        bound_ms, bound_by = bound_of(ops, nbytes)
+        out[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, mb=nbytes / 1e6)
+    if len(fa) > 5:   # B3: for the chain check against B1/B2 on the whole sequence
+        out["chain"] = dict(lp=lp, skipadd=fa[1], lens=lens, lab=fa[3], ll=ba[5], cot=ba[6],
+                            grad=grad, t_offset=t_offset,
+                            alpha_in_live=bool((fa[4] > NEG / 2).any()))
+    return out
+
+
+def check_blocks(blocks_io, mesh):
+    """B4 and B5 against their plain versions at each causal block of the
+    objective on this rank (SP: the [halo | shard] window; DP: the rank's
+    reads), within phase 1's and phase 5's tolerances; their times (one
+    rank at a time, mean over the blocks) and bounds (the same mean)."""
+    b4_err, b5_err = 0.0, [0.0] * len(B5_OUTPUTS)
+    for x, fw, d, dr, ds in blocks_io:
+        w = (fw[0], fw[1], fw[2], fw[4])   # gate_w, gate_b, out_w, res_w
+        b4_err = max(b4_err, hold_b4(d, fused_gated_block(x, *fw, d),
+                                     fused_gated_block_ref(x, *fw, d))[0])
+        errs, _ = hold_b5(d, fused_gated_block_bwd(x, *w, dr, ds, d),
+                          fused_gated_block_bwd_ref(x, *w, dr, ds, d))
+        b5_err = [max(a, b) for a, b in zip(b5_err, errs)]
+
+    def run():
+        ms = {"b4": 0.0, "b4_plain": 0.0, "b5": 0.0, "b5_plain": 0.0}
+        for x, fw, d, dr, ds in blocks_io:
+            w = (fw[0], fw[1], fw[2], fw[4])
+            ms["b4"] += cuda_ms(lambda: fused_gated_block(x, *fw, d), 2)
+            ms["b4_plain"] += cuda_ms(lambda: fused_gated_block_ref(x, *fw, d), 2)
+            ms["b5"] += cuda_ms(lambda: fused_gated_block_bwd(x, *w, dr, ds, d), 2)
+            ms["b5_plain"] += cuda_ms(lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d), 2)
+        return {k: v / len(blocks_io) for k, v in ms.items()}
+
+    out = one_rank_at_a_time(mesh, run)
+    for key, work in (("b4", b4_work), ("b5", b5_work)):
+        ops, nbytes = (sum(v) / len(blocks_io)
+                       for v in zip(*(work(x, fw[0]) for x, fw, *_ in blocks_io)))
+        out[f"{key}_bound"] = bound_of(ops, nbytes)
+    x = blocks_io[0][0]
+    out.update(b4_err=b4_err, b5_err=b5_err, n=len(blocks_io), B=x.shape[0],
+               L=sorted({io[0].shape[1] for io in blocks_io}))
+    return out
+
+
+def log_blocks(label, r):
+    """One rank's check_blocks result."""
+    log(f"{label}: B4 and B5 at its {r['n']} causal blocks (B={r['B']}, L={r['L'][0]}.."
+        f"{r['L'][-1]}) within rtol {B4_RTOL}, atol {B4_ATOL} / {B5_WGRAD_ATOL} x max|plain|; "
+        f"max_abs_err B4 {r['b4_err']:.3e}, B5 "
+        + " ".join(f"{k}={e:.2e}" for k, e in zip(B5_OUTPUTS, r["b5_err"]))
+        + f"; mean ms B4 {r['b4']:.4f} (plain {r['b4_plain']:.4f}, bound "
+        f"{r['b4_bound'][0]:.4f} {r['b4_bound'][1]}), B5 {r['b5']:.4f} (plain "
+        f"{r['b5_plain']:.4f}, bound {r['b5_bound'][0]:.4f} {r['b5_bound'][1]})")
+
+
+def timed(fn, box):
+    """fn with its host time (synchronised before and after) added to box."""
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        box.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def sp_rank(device):
+    """One rank of phase 8 (module-level: run_ranks spawns it). SP on a
+    (data=1, seq=2) mesh: (b) the cut-depth gradients, (c) the full-depth
+    gradients, B4/B5 against their plain versions on the halo windows, the
+    main path (3 SP train steps, launches counted, B3's calls recorded),
+    (a) B3 against its plain version, (e) times; then DP on a (data=2,
+    seq=1) mesh: B4/B5 against their plain versions on the rank's reads,
+    (d) 3 steps, B1/B2 of their first against their plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(data=1, seq=SP_RANKS, device=device)
+    dev = mesh.device
+    batch_g = sp_batch(dev)
+    batch = shard_batch(mesh, batch_g, seq_keys=("signal",))
+    out = {"mesh": repr(mesh), "transport": collectives.transport(mesh)}
+    out["cut"] = objective_grads(sp_model(dev, SP_CUT), batch, mesh)
+    model = sp_model(dev)
+    out["full"] = objective_grads(model, batch, mesh)
+    out["blocks"] = check_blocks(capture_blocks(model, batch, None, JointLoss("joint"),
+                                                logit_frames, mesh), mesh)
+    # the main path: the SP train step, counts zeroed and read each step
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
+                                 logit_length_fn=logit_frames, mesh=mesh)
+    state = TrainState.create(model.params(), tx)
+    n = len(WAVENET_DILS)
+    expect = {"fused_gated_block": n, "fused_gated_block_bwd": n,
+              "ctc_alpha_segment": 1, "ctc_beta_segment": 1}
+    with record_ctc() as rec:
+        state, hist, launches = train_steps(step, state, batch, expect)
+    out.update(launches=launches, losses=[h["total_loss"] for h in hist])
+    out["b3"] = check_ctc(rec, mesh, "B3")
+    del rec
+    # (e) the step's time, then one step with its exchanges timed
+    step_ms, _ = host_ms(lambda: step(state, batch), SP_STEPS_TIMED)
+    halo, carry, reduce = [], [], []
+    with mock.patch.object(collectives, "p2p", timed(collectives.p2p, halo)), \
+            mock.patch.object(ctc_sharded, "p2p", timed(ctc_sharded.p2p, carry)), \
+            mock.patch.object(trainer, "all_reduce_grads", timed(trainer.all_reduce_grads, reduce)):
+        step(state, batch)
+    out["times"] = dict(step_ms=step_ms, halo_ms=sum(halo), halo_n=len(halo),
+                        carry_ms=sum(carry), carry_n=len(carry), all_reduce_ms=sum(reduce),
+                        grad_mb=4 * sum(p.numel() for p in tree_leaves(state.params)) / 1e6)
+    del model, step, state
+    # (d) DP: 4 reads a rank, full depth, 3 Adagrad steps
+    dmesh = make_mesh(data=SP_RANKS, seq=1, device=device)
+    model = sp_model(dev)
+    batch = shard_batch(dmesh, batch_g)
+    blocks_dp = check_blocks(capture_blocks(model, batch, None, JointLoss("joint"),
+                                            logit_frames, dmesh), dmesh)
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
+                                 logit_length_fn=logit_frames, mesh=dmesh)
+    with record_ctc() as rec:
+        state, hist, dp_launches = train_steps(step, TrainState.create(model.params(), tx),
+                                               batch, {"fused_gated_block": n,
+                                                       "fused_gated_block_bwd": n,
+                                                       "ctc_alpha": 1, "ctc_beta": 1})
+    out["dp"] = dict(mesh=repr(dmesh), params=tree_leaves(state.params), launches=dp_launches,
+                     losses=[h["total_loss"] for h in hist], blocks=blocks_dp,
+                     ctc=check_ctc(rec, dmesh, "B1/B2"))
+    return out
+
+
+def leaf_rel_errs(got, want):
+    """||a - b|| / ||b|| leaf by leaf (0 where both are 0, inf where only b
+    is)."""
+    out = []
+    for a, b in zip(got, want):
+        nb, nd = float(b.norm()), float((a.to(b.device) - b).norm())
+        out.append(0.0 if nd == 0 else (nd / nb if nb else math.inf))
+    return out
+
+
+def sp_references(dev):
+    """The single-device runs phase 8 is held to, on the card: the kernel
+    step's objective and gradients at the cut and at full depth, the cuDNN
+    composite's (plain CTC) at full depth, and 3 Adagrad steps on the
+    kernels and on the cuDNN composite from the full-depth init."""
+    batch = sp_batch(dev)
+    ref = {"cut": objective_grads(sp_model(dev, SP_CUT), batch)}
+    model = sp_model(dev)
+    ref["full"] = objective_grads(model, batch)
+    with causal_blocks_as(cudnn_block), ctc_plain():
+        ref["full_cudnn"] = objective_grads(model, batch)
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
+                                 logit_length_fn=logit_frames)
+    state0 = TrainState.create(model.params(), tx)
+    ref["p0"] = tree_leaves(state0.params)
+    ref["dp"] = tree_leaves(train_steps(step, state0, batch)[0].params)
+    with causal_blocks_as(cudnn_block), ctc_plain():
+        ref["dp_cudnn"] = tree_leaves(train_steps(step, state0, batch)[0].params)
+    return ref
+
+
+def check_chain(ranks, dev):
+    """(a), gathered: the ranks' segments laid end to end against B1 and B2
+    on the whole sequence (the same cotangent)."""
+    c = [r["b3"]["chain"] for r in ranks]
+    if [x["t_offset"] for x in c] != [i * c[0]["lp"].shape[0] for i in range(len(c))] or \
+            not all(x["alpha_in_live"] for x in c[1:]):
+        raise AssertionError("B3: the segments' offsets or carries are not a chain")
+    lp = torch.cat([x["lp"] for x in c]).to(dev)
+    args = [c[0][k].to(dev) for k in ("skipadd", "lens", "lab")]
+    ll, alphas, _ = ctc_fwd(lp, *args)
+    grad, _ = ctc_bwd(lp, alphas, *args, ll, c[0]["cot"].to(dev))
+    ll_rel = float(((c[-1]["ll"].to(dev) - ll).abs() / ll.abs()).max())
+    if ll_rel > 1e-5:
+        raise AssertionError(f"B3 chain: ll {ll_rel:.3e} from B1's (relative)")
+    g_err = check_close("B3 chain grad", torch.cat([x["grad"] for x in c]).to(dev), grad,
+                        CTC_GRAD_RTOL, CTC_GRAD_ATOL)
+    return ll_rel, g_err
+
+
+def run_parallel(dev, card):
+    """Phase 8: SP and DP on 2 gloo ranks on this card, held to single-device
+    runs on the card; with 2 or more cards, SP and DP again on NCCL, one
+    rank a card. card: nvidia-smi's name and power limit, printed beside
+    the times. Returns the B3 rows of the kernels line."""
+    t0 = time.perf_counter()
+    ref = sp_references(dev)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(sp_rank, SP_RANKS, "gloo", str(dev), timeout=600)
+    ranks = [tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t, r) for r in ranks]
+    secs = time.perf_counter() - t1
+    log(f"phase 8: single-device references {t1 - t0:.1f} s; {SP_RANKS} ranks {secs:.1f} s "
+        f"(spawn and set-up included); backend: "
+        f"{ranks[0]['transport']}: {SP_RANKS} ranks on 1 card; meshes {ranks[0]['mesh']}, "
+        f"{ranks[0]['dp']['mesh']}")
+    # (b) the cut depth: loss and every gradient leaf
+    loss_rel = max(abs(r["cut"][0] - ref["cut"][0]) / abs(ref["cut"][0]) for r in ranks)
+    leaf = max(max(leaf_rel_errs(r["cut"][1], ref["cut"][1])) for r in ranks)
+    log(f"(b) SP, depth cut to {len(SP_CUT[0])}+{len(SP_CUT[1])} blocks, L={SP_L}: loss "
+        f"{ranks[0]['cut'][0]:.8g} vs single-device kernels {ref['cut'][0]:.8g} (rel {loss_rel:.2e}, "
+        f"bound {SP_LOSS_RTOL}); worst gradient leaf ||g_sp - g|| / ||g|| {leaf:.2e} "
+        f"(bound {SP_LEAF_RTOL})")
+    if not (loss_rel <= SP_LOSS_RTOL and leaf <= SP_LEAF_RTOL):
+        raise AssertionError("(b) SP at the cut depth differs from the single-device step")
+    # (c) full depth, res_w scaled: the loss, the gradients to the cuDNN yardstick
+    loss_rel = max(abs(r["full"][0] - ref["full"][0]) / abs(ref["full"][0]) for r in ranks)
+    sp_gap = max(rel_err(r["full"][1], ref["full"][1]) for r in ranks)
+    c_gap = rel_err(ref["full_cudnn"][1], ref["full"][1])
+    log(f"(c) SP at full depth, res_w scaled: loss rel {loss_rel:.2e} (bound "
+        f"{SP_FULL_LOSS_RTOL}); ||g_sp - g|| / ||g|| {sp_gap:.3e}, cuDNN composite's "
+        f"{c_gap:.3e}, ratio {sp_gap / c_gap:.3f} (bound {SENS_FACTOR}); launches a step per "
+        f"rank {[r['launches'] for r in ranks]}; losses of the 3 SP steps "
+        f"{ranks[0]['losses']}")
+    if not (loss_rel <= SP_FULL_LOSS_RTOL and sp_gap <= SENS_FACTOR * c_gap):
+        raise AssertionError("(c) SP at full depth differs from the single-device step")
+    # B4/B5 on the SP halo windows and on the DP ranks' reads
+    for i, r in enumerate(ranks):
+        log_blocks(f"SP rank {i}", r["blocks"])
+        log_blocks(f"DP rank {i}", r["dp"]["blocks"])
+    # (a) B3 on each rank, then the chain against B1/B2
+    for i, r in enumerate(ranks):
+        b = r["b3"]
+        log(f"(a) rank {i} (t_offset {b['chain']['t_offset']}): B3-fwd max_abs_err "
+            f"{b['fwd']['err']:.3e} kernel_ms={b['fwd']['ms']:.4f} plain_ms="
+            f"{b['fwd']['plain_ms']:.1f} bound_ms={b['fwd']['bound_ms']:.6f} "
+            f"({b['fwd']['bound_by']}, {b['fwd']['mb']:.1f} MB); B3-bwd max_abs_err "
+            f"{b['bwd']['err']:.3e} kernel_ms={b['bwd']['ms']:.4f} plain_ms="
+            f"{b['bwd']['plain_ms']:.1f} bound_ms={b['bwd']['bound_ms']:.6f} "
+            f"({b['bwd']['bound_by']}, {b['bwd']['mb']:.1f} MB)")
+    ll_rel, g_err = check_chain(ranks, dev)
+    log(f"(a) the chained segments against B1/B2 on the whole sequence: ll rel {ll_rel:.2e} "
+        f"(bound 1e-5), grad max_abs_err {g_err:.3e} (rtol {CTC_GRAD_RTOL}, atol "
+        f"{CTC_GRAD_ATOL})")
+    # (d) DP: identical params on both ranks, updates to the cuDNN yardstick
+    pd = [r["dp"]["params"] for r in ranks]
+    if not all(torch.equal(a, b) for p in pd[1:] for a, b in zip(p, pd[0])):
+        raise AssertionError("(d) DP: the ranks' params differ")
+    dp_ = lambda p: [a.to(dev) - b for a, b in zip(p, ref["p0"])]
+    upd, upd_c = rel_err(dp_(pd[0]), dp_(ref["dp"])), rel_err(dp_(ref["dp_cudnn"]), dp_(ref["dp"]))
+    log(f"(d) DP on {SP_RANKS} ranks (4 reads each), 3 Adagrad steps: params bit-identical "
+        f"across ranks; updates ||dp - dp_1|| / ||dp_1|| {upd:.3e}, cuDNN composite's "
+        f"{upd_c:.3e}, ratio {upd / upd_c:.3f} (bound {SENS_FACTOR}); launches a step "
+        f"{ranks[0]['dp']['launches']}; losses {ranks[0]['dp']['losses']}")
+    if not upd <= SENS_FACTOR * upd_c:
+        raise AssertionError("(d) DP's updates differ from the single-device steps")
+    for i, r in enumerate(ranks):
+        c = r["dp"]["ctc"]
+        log(f"(d) DP rank {i}: B1 and B2 of its first step (T={SP_L // POOL}, B={B // SP_RANKS}) "
+            f"against their plain loops: max_abs_err {c['fwd']['err']:.3e}, "
+            f"{c['bwd']['err']:.3e}; kernel_ms {c['fwd']['ms']:.4f}, {c['bwd']['ms']:.4f} "
+            f"(plain {c['fwd']['plain_ms']:.1f}, {c['bwd']['plain_ms']:.1f}; bound "
+            f"{c['fwd']['bound_ms']:.6f}, {c['bwd']['bound_ms']:.6f})")
+    # (e) times
+    for i, r in enumerate(ranks):
+        t = r["times"]
+        log(f"(e) rank {i}: SP train step {t['step_ms']:.1f} ms (mean of {SP_STEPS_TIMED}, "
+            f"host clock, synchronised; both ranks share the card); in one instrumented step "
+            f"{t['halo_n']} halo exchanges {t['halo_ms']:.1f} ms, {t['carry_n']} CTC carries "
+            f"{t['carry_ms']:.1f} ms, the gradient all-reduce ({t['grad_mb']:.1f} MB) "
+            f"{t['all_reduce_ms']:.1f} ms; card {card}")
+    if torch.cuda.device_count() >= 2:
+        nccl = run_ranks(sp_rank, SP_RANKS, "nccl", None, timeout=600)
+        log(f"nccl: {nccl[0]['transport']}, one rank a card: (c) launches "
+            f"{[r['launches'] for r in nccl]}, step {[round(r['times']['step_ms'], 1) for r in nccl]} ms")
+    else:
+        log("nccl: not run (1 device)")
+    rows = []
+    for key, name, line in (("fwd", "B3-fwd", 335), ("bwd", "B3-bwd", 355)):
+        mean = lambda k: sum(r["b3"][key][k] for r in ranks) / len(ranks)
+        counts = {r["launches"].get(f"ctc_{'alpha' if key == 'fwd' else 'beta'}_segment", 0)
+                  for r in ranks}
+        rows.append(dict(
+            name=name, route="cuda", source="wavenet_speech_tpu_torch/csrc/ctc.cu",
+            replaces=f"wavenet_speech_tpu/ops/pallas/ctc.py:{line}", launches=counts.pop(),
+            max_abs_err=max(r["b3"][key]["err"] for r in ranks), ms=mean("ms"),
+            plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by=ranks[0]["b3"][key]["bound_by"], library_ms=None))
+    return rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1216,10 +1676,7 @@ def main() -> int:
     # so the untrained forward above turns f32 rounding differences into
     # different basecalls. Scaling res_w by 1/sqrt(2) keeps the stream's
     # scale; the model's code and shapes are unchanged.
-    with torch.no_grad():
-        for blk in [*model.model_base.stack.blocks, model.model_ctc.input_block,
-                    *model.model_ctc.stack.blocks]:
-            blk.res_w.mul_(0.5 ** 0.5)
+    scale_res_w(model)
 
     with torch.inference_mode():
         # ---- 4. end to end through the Basecaller: the main path
@@ -1295,8 +1752,10 @@ def main() -> int:
     train = run_training(dev)
     # ---- 6. bf16 training at full width
     bf16 = run_training_bf16(dev)
-    # ---- 7. the train entry point: this slice's main path
+    # ---- 7. the train entry point
     cli_launches = phase_train_cli(dev)
+    # ---- 8. DP and SP over torch.distributed: this slice's main path
+    b3 = run_parallel(dev, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
 
@@ -1339,6 +1798,7 @@ def main() -> int:
             launches=cli_launches[name], max_abs_err=k["err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
+    kernels.extend(b3)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,7 @@ import torch
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref)
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
-from wavenet_speech_tpu_torch.ops.ctc_scan import (ctc_bwd, ctc_bwd_ref, ctc_fwd,
-                                                   ctc_fwd_ref)
+from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
@@ -155,7 +154,9 @@ def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg):
                                     -20 * torch.rand((B, J), generator=g)).to(cuda)
         kw = dict(t_offset=9, tl_true=T - 5)
         lens = lens + 9
-    before = (ctc_fwd.launches, ctc_bwd.launches)
+    counts = lambda: (ctc_fwd.launches, ctc_bwd.launches, ctc_fwd.launches_segment,
+                      ctc_bwd.launches_segment)
+    before = counts()
     a_in = carry() if seg else None
     got = ctc_fwd(lp, skip, lens, lab, alpha_in=a_in, **kw)
     want = ctc_fwd_ref(lp, skip, lens, lab, alpha_in=a_in, **kw)
@@ -167,7 +168,41 @@ def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg):
     torch.cuda.synchronize()
     torch.testing.assert_close(gg[0], gw[0], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(gg[1], gw[1], rtol=1e-5, atol=1e-5)
-    assert (ctc_fwd.launches, ctc_bwd.launches) == (before[0] + 1, before[1] + 1)
+    # a call with a carry is B3's: it counts apart
+    whole, segment = (0, 1) if seg else (1, 0)
+    assert counts() == (before[0] + whole, before[1] + whole, before[2] + segment,
+                        before[3] + segment)
+
+
+def test_ctc_segment_kernels_chain_to_the_whole_sequence(cuda):
+    """B3: three segments chained by their carries equal B1/B2 on the whole
+    sequence (sequences ending in the first and the middle segment); each
+    call with a carry counts one launch_segment and no whole-sequence
+    launch."""
+    B, T, S, C = 4, 90, 8, 5
+    lp, skip, lens, lab, cot = _ctc_inputs(cuda, B, T, S, C, T)
+    lens = torch.tensor([T, 70, 40, 25], dtype=torch.int32, device=cuda)
+    J = lp.shape[2]
+    ll, alphas, _ = ctc_fwd_ref(lp, skip, lens, lab)
+    grad, _ = ctc_bwd_ref(lp, alphas, skip, lens, lab, ll, cot)
+    before = (ctc_fwd.launches, ctc_bwd.launches, ctc_fwd.launches_segment,
+              ctc_bwd.launches_segment)
+    alpha, seg_alphas, seg_ll = torch.full((B, J), NEG, device=cuda), [], None
+    for s in range(3):
+        seg_ll, a, alpha = ctc_fwd(lp[30 * s:30 * (s + 1)].contiguous(), skip, lens, lab,
+                                   alpha, 30 * s)
+        seg_alphas.append(a)
+    torch.testing.assert_close(seg_ll, ll, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(torch.cat(seg_alphas), alphas, rtol=1e-5, atol=1e-5)
+    lpb, grads = torch.full((B, J), NEG, device=cuda), []
+    for s in reversed(range(3)):
+        g, lpb = ctc_bwd(lp[30 * s:30 * (s + 1)].contiguous(), seg_alphas[s], skip, lens,
+                         lab, ll, cot, lpb, 30 * s)
+        grads.insert(0, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(grads), grad, rtol=1e-4, atol=1e-6)
+    assert (ctc_fwd.launches, ctc_bwd.launches, ctc_fwd.launches_segment,
+            ctc_bwd.launches_segment) == (before[0], before[1], before[2] + 3, before[3] + 3)
 
 
 BF16_OUTPUTS = ("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr")

@@ -13,6 +13,15 @@ card its forward and backward kernels (an autograd Function), on the CPU
 its plain version, which autograd differentiates. Non-causal blocks (the
 classifier's) run the composite below, as in JAX, whose kernel is causal
 only.
+
+Under sequence parallelism (``parallel.halo.seq_axis``) the JAX package
+leaves its kernel for the XLA composite, because the kernel zero-pads
+where the halo should be (ops/pallas/residual_block.py:111-121). Here the
+causal block runs the fused block on the window [left halo | shard] and
+keeps its last L_shard frames: the zero padding reaches only frames that
+are dropped, and the gradient of the halo rows flows back through the
+exchange. The outputs equal the composite's; the kernels stay on the SP
+path at the cost of (K-1)*d extra frames a block.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from wavenet_speech_tpu_torch.nn import initializers as init
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.conv import noncausal_conv1d, receptive_field
 from wavenet_speech_tpu_torch.ops.fused_block import fused_gated_block
+from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
 
 class ResidualBlock(nn.Module):
@@ -62,9 +72,14 @@ class ResidualBlock(nn.Module):
     def forward(self, x):
         """x (B, L, C_in) -> (residual_out, skip_out), each (B, L, C)."""
         if self.causal:
-            return fused_gated_block(x, self.gate_w, self.gate_b, self.out_w[0],
-                                     self.out_b, self.res_w, self.res_b,
-                                     self.dilation)
+            mesh = current_seq_axis()
+            halo = (self.kernel_width - 1) * self.dilation if mesh is not None else 0
+            if halo:
+                x = halo_pad(x, halo, 0, mesh)
+            resid, skip = fused_gated_block(x, self.gate_w, self.gate_b, self.out_w[0],
+                                            self.out_b, self.res_w, self.res_b,
+                                            self.dilation)
+            return (resid[:, halo:], skip[:, halo:]) if halo else (resid, skip)
         C = self.out_channels
         g = noncausal_conv1d(x, self.gate_w, self.gate_b, dilation=self.dilation)
         act = gated_activation(g[..., :C], g[..., C:])

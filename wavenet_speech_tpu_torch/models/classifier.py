@@ -17,12 +17,18 @@ from wavenet_speech_tpu_torch.models.stack import LayerSpec, SkipSumStack
 from wavenet_speech_tpu_torch.nn import initializers as init
 from wavenet_speech_tpu_torch.ops.activations import leaky_relu
 from wavenet_speech_tpu_torch.ops.conv import Conv1x1, Dense
+from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis
 
 
 def avg_pool1d(x, kernel_size: int):
     """nn.AvgPool1d(kernel) over NLC: stride = kernel, no padding, output
-    length floor(L / kernel)."""
+    length floor(L / kernel). Under ``seq_axis`` each time shard pools its
+    own frames, which equals the whole sequence's pool only when
+    L_shard % kernel == 0 (parallel/halo.py:84-85); otherwise it raises."""
     B, L, C = x.shape
+    if current_seq_axis() is not None and L % kernel_size:
+        raise ValueError(f"avg_pool1d under sequence parallelism: the shard length "
+                         f"{L} is not a multiple of the pool {kernel_size}")
     Lo = L // kernel_size
     return x[:, : Lo * kernel_size].reshape(B, Lo, kernel_size, C).mean(dim=2)
 

@@ -10,8 +10,14 @@ Padding is explicit and asymmetric, as in the JAX package:
     frame.
 
 Kernels are (K, C_in, C_out), as in the JAX package, and are permuted to
-torch's (C_out, C_in, K) at the call. The sequence-parallel halo exchange of
-the JAX convs is not ported yet.
+torch's (C_out, C_in, K) at the call.
+
+Under sequence parallelism (``parallel.halo.seq_axis``) the padding is
+replaced by halos from the neighbouring time shards (ops/conv.py:116-154):
+a causal conv takes its (k-1)*d left frames from the previous shard, a
+non-causal one its ``autopad`` left frames from the previous shard and the
+rest from the next. The shards at the ends of the line get zeros, which is
+the padding of the whole sequence.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavenet_speech_tpu_torch.nn import initializers as init
+from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
 
 def receptive_field(kernel_width: int, dilation: int) -> int:
@@ -48,18 +55,26 @@ def _conv1d(x, w, *, dilation: int, pad_left: int, pad_right: int):
 
 def causal_conv1d(x, w, b=None, *, dilation: int = 1):
     """Length-preserving causal dilated conv. x: (B, L, C_in),
-    w: (K, C_in, C_out), b: (C_out,)."""
-    out = _conv1d(x, w, dilation=dilation,
-                  pad_left=(w.shape[0] - 1) * dilation, pad_right=0)
+    w: (K, C_in, C_out), b: (C_out,). Under ``seq_axis`` the left padding
+    is the previous shard's halo."""
+    pad = (w.shape[0] - 1) * dilation
+    mesh = current_seq_axis()
+    if mesh is not None and pad > 0:
+        x, pad = halo_pad(x, pad, 0, mesh), 0
+    out = _conv1d(x, w, dilation=dilation, pad_left=pad, pad_right=0)
     return out if b is None else out + b
 
 
 def noncausal_conv1d(x, w, b=None, *, dilation: int = 1):
-    """Length-preserving auto-padded (non-causal) dilated conv."""
+    """Length-preserving auto-padded (non-causal) dilated conv; halos on
+    both sides under ``seq_axis``."""
     k = w.shape[0]
     left = autopad(k, dilation)
-    out = _conv1d(x, w, dilation=dilation, pad_left=left,
-                  pad_right=(k - 1) * dilation - left)
+    right = (k - 1) * dilation - left
+    mesh = current_seq_axis()
+    if mesh is not None and left + right > 0:
+        x, left, right = halo_pad(x, left, right, mesh), 0, 0
+    out = _conv1d(x, w, dilation=dilation, pad_left=left, pad_right=right)
     return out if b is None else out + b
 
 

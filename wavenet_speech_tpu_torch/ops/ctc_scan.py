@@ -13,9 +13,12 @@ occupancy exp(alpha + beta - ll) * cotangent.
 ``ctc_fwd`` and ``ctc_bwd`` launch ``csrc/ctc.cu`` on CUDA tensors and run
 ``ctc_fwd_ref`` and ``ctc_bwd_ref``, the plain frame loops, on CPU
 tensors. Both take the segment carry of the TPU kernels (``alpha_in`` /
-``lpb_in``, ``t_offset``, ``tl_true``), which the sequence-sharded CTC
-will use. The TPU's time chunking (``_pick_ct``, ``_pad_T``) existed only
-for its VMEM and is not ported: T is never padded.
+``lpb_in``, ``t_offset``, ``tl_true``). Launched with a carry they are B3
+(``ctc_fwd_segment`` / ``ctc_bwd_segment``, pallas/ctc.py:335-370), the
+per-shard pieces of the sequence-sharded CTC (``parallel/ctc_sharded.py``),
+counted apart (``launches_segment``). The TPU's time chunking
+(``_pick_ct``, ``_pad_T``) existed only for its VMEM and is not ported: T
+is never padded, so a segment's ``tl_true`` is its length.
 
 What bounds them on an H100: at the bench shape (T=1126, B=8, J=859) B1
 moves 62 MB and B2 93 MB (0.02-0.03 ms at 3.35 TB/s), but each runs T
@@ -146,7 +149,10 @@ def ctc_fwd(lp_ext_t, skipadd, logit_lengths, label_lengths,
             tl_true: Optional[int] = None):
     """B1: (ll, alphas, alpha_out); see ``ctc_fwd_ref``. On a CPU tensor
     this is ``ctc_fwd_ref``; on a CUDA tensor it launches the kernel or
-    raises. ``ctc_fwd.launches`` counts kernel launches."""
+    raises. With a carry (alpha_in) it is B3's forward, one segment of the
+    sequence-sharded CTC: ll is then the log-likelihood as if this were the
+    last segment, alpha_out the next segment's carry. ``ctc_fwd.launches``
+    counts launches without a carry, ``ctc_fwd.launches_segment`` with one."""
     if lp_ext_t.device.type == "cpu":
         return ctc_fwd_ref(lp_ext_t, skipadd, logit_lengths, label_lengths,
                            alpha_in, t_offset, tl_true)
@@ -154,7 +160,8 @@ def ctc_fwd(lp_ext_t, skipadd, logit_lengths, label_lengths,
         raise ValueError(f"ctc_fwd: unsupported device {lp_ext_t.device}")
     dev = lp_ext_t.device
     T, B, J = lp_ext_t.shape
-    if alpha_in is None:
+    segment = alpha_in is not None
+    if not segment:
         alpha_in = torch.full((B, J), NEG, device=dev)
     _check("ctc_fwd", lp_ext_t, skipadd, alpha_in)
     lens, lab = _i32(logit_lengths, dev), _i32(label_lengths, dev)
@@ -169,7 +176,10 @@ def ctc_fwd(lp_ext_t, skipadd, logit_lengths, label_lengths,
             T, B, J, int(t_offset), T if tl_true is None else int(tl_true),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "ctc_fwd")
-    ctc_fwd.launches += 1
+    if segment:
+        ctc_fwd.launches_segment += 1
+    else:
+        ctc_fwd.launches += 1
     return ll, alphas, alpha_out
 
 
@@ -178,7 +188,10 @@ def ctc_bwd(lp_ext_t, alphas, skipadd, logit_lengths, label_lengths, ll, cot,
             tl_true: Optional[int] = None):
     """B2: (grad, lpb_out); see ``ctc_bwd_ref``. On a CPU tensor this is
     ``ctc_bwd_ref``; on a CUDA tensor it launches the kernel or raises.
-    ``ctc_bwd.launches`` counts kernel launches."""
+    With a carry (lpb_in, the next segment's first lp + beta) it is B3's
+    backward: ll are then the global log-likelihoods, lpb_out the previous
+    segment's carry. ``ctc_bwd.launches`` counts launches without a carry,
+    ``ctc_bwd.launches_segment`` with one."""
     if lp_ext_t.device.type == "cpu":
         return ctc_bwd_ref(lp_ext_t, alphas, skipadd, logit_lengths, label_lengths,
                            ll, cot, lpb_in, t_offset, tl_true)
@@ -186,7 +199,8 @@ def ctc_bwd(lp_ext_t, alphas, skipadd, logit_lengths, label_lengths, ll, cot,
         raise ValueError(f"ctc_bwd: unsupported device {lp_ext_t.device}")
     dev = lp_ext_t.device
     T, B, J = lp_ext_t.shape
-    if lpb_in is None:
+    segment = lpb_in is not None
+    if not segment:
         lpb_in = torch.full((B, J), NEG, device=dev)
     cot = cot.float().contiguous()
     _check("ctc_bwd", lp_ext_t, alphas, skipadd, ll, cot, lpb_in)
@@ -204,12 +218,15 @@ def ctc_bwd(lp_ext_t, alphas, skipadd, logit_lengths, label_lengths, ll, cot,
             T, B, J, int(t_offset), T if tl_true is None else int(tl_true),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "ctc_bwd")
-    ctc_bwd.launches += 1
+    if segment:
+        ctc_bwd.launches_segment += 1
+    else:
+        ctc_bwd.launches += 1
     return grad, lpb_out
 
 
-ctc_fwd.launches = 0
-ctc_bwd.launches = 0
+ctc_fwd.launches = ctc_fwd.launches_segment = 0
+ctc_bwd.launches = ctc_bwd.launches_segment = 0
 
 
 class _CTCScan(torch.autograd.Function):

@@ -20,12 +20,25 @@ float32 master params through the cast; the losses are computed in float32
 (``training/loss.py``, ``ops/ctc.py``), and the optimizer state stays
 float32.
 
-Not ported yet: ``make_ctc_train_step`` (with RawCTCNet, ROADMAP A8), and
-the JAX options ``donate`` and ``scan_unroll``, which have no meaning in an
-eager loop.
+With a mesh (``parallel.make_mesh``; the JAX step jitted on sharded
+inputs, __graft_entry__.py:110-136, 213-234) each rank's step takes its
+(data, seq) shard of the batch (``parallel.shard_batch(mesh, batch,
+seq_keys=("signal",))``): under SP the models run with a halo exchange at
+every conv and the CTC sequence-sharded, and the loss terms are the global
+ones whose gradients are this rank's shares (``training/loss.py``). The
+param gradients are summed over every rank (one all-reduce of one flat
+buffer) before the skip guard, so the guard, the norm and the optimizer
+run on the same values on every rank: all ranks skip together and their
+params stay identical.
+
+Not ported yet: ``make_ctc_train_step`` (with RawCTCNet, ROADMAP A8),
+tensor parallelism (a mesh whose "model" axis is > 1 raises), and the JAX
+options ``donate`` and ``scan_unroll``, which have no meaning in an eager
+loop.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -33,6 +46,9 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from wavenet_speech_tpu_torch.parallel.collectives import all_reduce_sum
+from wavenet_speech_tpu_torch.parallel.halo import seq_axis
+from wavenet_speech_tpu_torch.parallel.mesh import Mesh
 from wavenet_speech_tpu_torch.training.loss import JointLoss
 from wavenet_speech_tpu_torch.training.optimizer import (GradientTransformation,
                                                          apply_updates)
@@ -95,23 +111,49 @@ def _cast(tree, dtype):
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
+def _check_mesh(mesh: Optional[Mesh]) -> None:
+    if mesh is not None and mesh.axis_size("model") > 1:
+        raise NotImplementedError("tensor parallelism over the 'model' axis is not "
+                                  "ported (ROADMAP A12)")
+
+
+def _sharded(mesh: Optional[Mesh]):
+    """The SP context where the mesh shards time, else nothing."""
+    if mesh is not None and mesh.axis_size("seq") > 1:
+        return seq_axis(mesh)
+    return contextlib.nullcontext()
+
+
+def all_reduce_grads(grads, mesh: Optional[Mesh]):
+    """The gradient tree summed over every rank of the mesh, by one
+    all-reduce of one flat buffer."""
+    if mesh is None or mesh.size == 1:
+        return grads
+    leaves = tree_leaves(grads)
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in leaves]), mesh)
+    parts = torch.split(flat, [g.numel() for g in leaves])
+    return tree_unflatten(grads, [p.view_as(g) for p, g in zip(parts, leaves)])
+
+
 def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
-                    logit_length_fn, compute_dtype):
+                    logit_length_fn, compute_dtype, mesh: Optional[Mesh] = None):
     """(total, xe, ctc) of the joint objective (trainer.py:127-163), the
-    models run in compute_dtype (None: the params' own)."""
+    models run in compute_dtype (None: the params' own); with a mesh, on
+    this rank's shard with the global terms (``training/loss.py``)."""
     signal = batch["signal"]
     if signal.dim() == 2:
         # quantised levels shipped from the host: one-hot on the device
         signal = nn.functional.one_hot(signal.long(), base_model.in_dim).float()
     signal = _cast(signal, compute_dtype)
     params = _cast(params, compute_dtype)
-    signal_pred = functional_call(base_model, params["base"], (signal,))
-    # the classifier reads the WaveNet's output, as in inference
-    logits = functional_call(ctc_model, params["ctc"], (signal_pred,))
-    kwargs = {}
+    with _sharded(mesh):
+        signal_pred = functional_call(base_model, params["base"], (signal,))
+        # the classifier reads the WaveNet's output, as in inference
+        logits = functional_call(ctc_model, params["ctc"], (signal_pred,))
+    kwargs = {} if mesh is None else {"mesh": mesh}
     if logit_length_fn is not None:  # length-aware mode
-        kwargs = {"logit_lengths": logit_length_fn(batch["signal_lengths"]),
-                  "signal_lengths": batch["signal_lengths"]}
+        kwargs.update(logit_lengths=logit_length_fn(batch["signal_lengths"]),
+                      signal_lengths=batch["signal_lengths"])
     xe, ctc = loss.calculate(signal, signal_pred, logits, batch["labels"],
                              batch["label_lengths"], **kwargs)
     total = ctc if xe is None else loss.joint_weight * xe + loss.ctc_weight * ctc
@@ -124,7 +166,8 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
                           compute_dtype=None,
                           logit_length_fn: Optional[Callable] = None,
                           steps_per_call: int = 1,
-                          multi_same_batch: bool = False):
+                          multi_same_batch: bool = False,
+                          mesh: Optional[Mesh] = None):
     """The joint (XE + CTC) step over a {"base", "ctc"} params tree
     (trainer.py:103-196). batch: a dict of "signal" ((B, L, C) one-hot or
     (B, L) levels), "labels", "label_lengths" and, for logit_length_fn
@@ -142,17 +185,22 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
     multi_same_batch, else on K batches stacked on a leading axis; the
     metrics then come back stacked (K,).
 
+    mesh: run as one rank of a DP/SP mesh, on this rank's shard of each
+    batch, the gradients summed over every rank (see the module
+    docstring); every rank must call the step with its shard.
+
     Returns step_fn(state, batch) -> (state, metrics)."""
     loss = loss or JointLoss("joint")
+    _check_mesh(mesh)
 
     def step_fn(state: TrainState, batch) -> tuple:
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
         total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params, batch,
-                                         logit_length_fn, compute_dtype)
+                                         logit_length_fn, compute_dtype, mesh)
         # the last block's residual projection reaches no output: zero grads
-        grads = tree_unflatten(state.params, list(torch.autograd.grad(
-            total, leaves, allow_unused=True, materialize_grads=True)))
+        grads = all_reduce_grads(tree_unflatten(state.params, list(torch.autograd.grad(
+            total, leaves, allow_unused=True, materialize_grads=True))), mesh)
         # the skip guard (trainer.py:168-182): all_finite and global_norm_safe,
         # not the finiteness of a naive norm, which overflows f32 on finite
         # gradients past ~1.8e19 and would freeze training
@@ -185,17 +233,20 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
 
 def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
                    loss: Optional[JointLoss] = None, compute_dtype=None,
-                   logit_length_fn: Optional[Callable] = None):
+                   logit_length_fn: Optional[Callable] = None,
+                   mesh: Optional[Mesh] = None):
     """The validation step (trainer.py:277-306): the train step's metrics
-    and weighting, no update, in compute_dtype as the train step. Returns
+    and weighting, no update, in compute_dtype as the train step; with a
+    mesh, on this rank's shard, the global metrics on every rank. Returns
     eval_fn(params, batch) -> metrics."""
     loss = loss or JointLoss("joint")
+    _check_mesh(mesh)
 
     def eval_fn(params, batch) -> Metrics:
         batch = _batch_to(batch, tree_leaves(params)[0].device)
         with torch.no_grad():
             total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params,
-                                             batch, logit_length_fn, compute_dtype)
+                                             batch, logit_length_fn, compute_dtype, mesh)
         return {"xe_loss": xe, "ctc_loss": ctc, "total_loss": total}
 
     return eval_fn
