@@ -4,7 +4,8 @@ one NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``,
+It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
+(and prints ptxas's registers and spills of the bf16 tensor-core kernels),
 then, at the full width of the bench model (WaveNet 30 blocks + classifier
 18 blocks, 256 channels, 5 labels; random weights from a seed; B=8 one-hot
 reads of L=4505):
@@ -87,6 +88,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -192,6 +194,7 @@ CUT_DEPTHS = ((([1, 2, 4], [1, 2]), True),
               (([1, 2, 4, 8, 16, 32, 64, 128, 256, 512], [1, 2, 4, 8, 16, 32]), False))
 BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
+TENSOR_CORE_SOURCES = ("fused_block_bf16", "fused_block_bwd_bf16")  # wgmma kernels
 
 
 def log(*a):
@@ -236,6 +239,44 @@ def host_ms(fn, reps=1):
         out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def start_ptxas_report(tmp):
+    """A second compile of the tensor-core kernels' sources with
+    ``-Xptxas -v`` (into tmp, beside the build): their registers and
+    spills."""
+    return {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(tmp) / f"{name}.so"),
+         str(_build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in TENSOR_CORE_SOURCES}
+
+
+def demangled_kernel(mangled):
+    """The kernel's name in an Itanium-mangled symbol (a length-prefixed
+    identifier ending in _kernel), with its template's integer argument."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel") + 1, end):
+        if mangled[:end - n].endswith(str(n)):
+            arg = re.match(r"ILi(\d+)E", mangled[end:])
+            return mangled[end - n:end] + (f"<{arg[1]}>" if arg else "")
+    return mangled
+
+
+def log_ptxas_report(procs):
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{out}")
+        kernel, injected = "?", 0
+        for line in out.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                kernel = demangled_kernel(entry[1])
+            elif "is injected" in line:  # C7517/C7519: a wait ptxas put between wgmmas
+                injected += 1
+            elif "Used" in line or "spill" in line:
+                log(f"ptxas {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
+        log(f"ptxas {name}.cu: {injected} warpgroup waits injected by the compiler")
 
 
 def bound_of(ops, nbytes):
@@ -911,11 +952,11 @@ def phase_bf16_kernels(blocks_io):
     # B4-bf16: every product is bf16 x bf16 (tensor cores); 2-byte tensors
     f_flops = 2 * n * (K * C_in * C2 + C * C2 + C_in * C)
     f_bytes = 2 * (n * C_in + 2 * n * C + w_in)
-    # B5-bf16: a product of two bf16-exact operands is exact in float32, so
-    # the tensor cores could take the gate recompute (x Wg), da (do Wo^T),
-    # dx's residual part (dresid Wr^T) and dWr (x^T dresid); dx's gate part
-    # (dg Wg^T), dWg (x^T dg) and dWo (act^T do) take a float32 operand
-    # (dg, act) and are float32 products in the TPU kernel's arithmetic
+    # B5-bf16: the gate recompute (x Wg), da (do Wo^T), dx's residual part
+    # (dresid Wr^T) and dWr (x^T dresid) multiply two bf16 values; dx's gate
+    # part (dg Wg^T), dWg (x^T dg) and dWo (act^T do) take a float32 operand
+    # (dg, act), which the kernel splits into bf16 hi + lo: two bf16
+    # products each. All of it runs at the bf16 tensor-core rate.
     b_flops16 = 2 * n * (K * C_in * C2 + C2 * C + C * C_in + C_in * C)
     b_flops32 = 2 * n * (K * C2 * C_in + K * C_in * C2 + C * C2)
     b_bytes = 2 * (n * (C_in + 2 * C + C_in) + w_in + w_in)
@@ -925,8 +966,8 @@ def phase_bf16_kernels(blocks_io):
             ("f", "B4-bf16 fused_gated_block_bf16", f_flops / PEAK_BF16_FLOPS * 1e3, f_bytes,
              max(r["f_err"] for r in rows), f_flops / 1e9),
             ("b", "B5-bf16 fused_gated_block_bwd_bf16",
-             (b_flops16 / PEAK_BF16_FLOPS + b_flops32 / PEAK_F32_FLOPS) * 1e3, b_bytes,
-             max(max(r["b_errs"]) for r in rows), (b_flops16 + b_flops32) / 1e9)):
+             (b_flops16 + 2 * b_flops32) / PEAK_BF16_FLOPS * 1e3, b_bytes,
+             max(max(r["b_errs"]) for r in rows), (b_flops16 + 2 * b_flops32) / 1e9)):
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
         out[key] = dict(err=err, ms=mean(f"{key}_ms"), plain_ms=mean(f"{key}_plain_ms"),
@@ -936,7 +977,9 @@ def phase_bf16_kernels(blocks_io):
             f"plain_ms={out[key]['plain_ms']:.4f} library_ms={out[key]['library_ms']:.4f} "
             f"(bf16 cuDNN composite{' autograd backward' if key == 'b' else ''}) "
             f"bound_ms={bound_ms:.4f} ({bound_by}: {gflop:.2f} GFLOP -> {ops_ms:.4f} ms, "
-            f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms); mean over the 30 blocks")
+            f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms); mean over the 30 blocks; "
+            f"{bound_ms / out[key]['ms']:.1%} of its bound, "
+            f"{out[key]['library_ms'] / out[key]['ms']:.2f}x the library's speed")
     for r in rows:
         log(f"  bf16 d={r['d']:3d} B4 err {r['f_err']:.2e} ms {r['f_ms']:.4f} | B5 err "
             + " ".join(f"{k}={e:.2e}" for k, e in zip(B5_OUTPUTS, r["b_errs"]))
@@ -1627,9 +1670,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
-    secs = _build.build()
-    log(f"built kernels from the checkout: "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas = start_ptxas_report(tmp)
+        secs = _build.build()
+        log(f"built kernels from the checkout: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+        log_ptxas_report(ptxas)
 
     dev = torch.device("cuda")
     model = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
@@ -1789,8 +1835,8 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
     for key, name, source, line in (
-            ("f", "fused_gated_block_bf16", "fused_block.cu", 58),
-            ("b", "fused_gated_block_bwd_bf16", "fused_block_bwd.cu", 201)):
+            ("f", "fused_gated_block_bf16", "fused_block_bf16.cu", 58),
+            ("b", "fused_gated_block_bwd_bf16", "fused_block_bwd_bf16.cu", 201)):
         k = bf16[key]
         kernels.append(dict(
             name=name, route="cuda", source=f"wavenet_speech_tpu_torch/csrc/{source}",

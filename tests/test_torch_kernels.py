@@ -230,10 +230,15 @@ def _fwd_atol(want, out_w):
         2 * 2.0 ** -8 * float(out_w.float().abs().max())
 
 
-@pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
-                                            (1, 37, 8, 12, 3, 5),
-                                            (2, 700, 64, 64, 2, 512),
-                                            (3, 129, 260, 132, 2, 7)])
+# the bf16 kernels' shapes: small and padded widths (C=12, C_in=260 are not
+# multiples of 8), full width at the shortest and longest dilation, and a
+# ragged L shorter than the dilation (every tap but the last reads zeros)
+BF16_SHAPES = [(2, 100, 32, 32, 2, 4), (1, 37, 8, 12, 3, 5), (2, 700, 64, 64, 2, 512),
+               (3, 129, 260, 132, 2, 7), (1, 4505, 256, 256, 2, 1),
+               (1, 4505, 256, 256, 2, 512), (2, 65, 256, 256, 2, 100)]
+
+
+@pytest.mark.parametrize("B,L,C_in,C,K,d", BF16_SHAPES)
 def test_fused_block_bf16_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     args, _, _ = _bf16_block(cuda, d, B, L, C_in, C, K)
     before = (fused_gated_block.launches, fused_gated_block.launches_bf16)
@@ -247,10 +252,7 @@ def test_fused_block_bf16_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
         _assert_bf16_close(a, b, _fwd_atol(want, args[3]), name)
 
 
-@pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
-                                            (1, 37, 8, 12, 3, 5),
-                                            (2, 700, 64, 64, 2, 512),
-                                            (3, 129, 260, 132, 2, 7)])
+@pytest.mark.parametrize("B,L,C_in,C,K,d", BF16_SHAPES)
 def test_fused_block_bwd_bf16_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     (x, gw, gb, ow, _, rw, _), dr, ds = _bf16_block(cuda, d + 1, B, L, C_in, C, K)
     before = (fused_gated_block_bwd.launches, fused_gated_block_bwd.launches_bf16)

@@ -1,5 +1,5 @@
-// Fused causal gated residual block, forward, float32 or bf16, for Hopper
-// (sm_90a).
+// Fused causal gated residual block, forward, float32, for Hopper (sm_90a).
+// The bf16 form is fused_block_bf16.cu (tensor cores).
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/residual_block.py
 // (_kernel, launched by _forward). Per (batch b, time tile of TL rows):
@@ -32,22 +32,10 @@
 //    memory, two blocks an SM (125 registers a thread). Of 16, 32 and 64 rows,
 //    timed on an H100, 32 was the fastest or tied (PERF.md).
 //
-// bf16 (the TPU kernel's own form, residual_block.py:78-94): every tensor is
-// bf16 in device memory and widened to float as it enters shared memory, so
-// the gate and both 1x1 products multiply bf16 values exactly and sum in
-// float (the MXU's bf16 x bf16 -> f32), the biases add in float, act is
-// rounded to bf16 before the 1x1 product (the TPU kernel's act.astype), and
-// resid and skip are summed in float and stored rounded to bf16. The same
-// FMAs run on the CUDA cores as in float32, so its time is float32's less
-// the halved bytes. The card's least time for the same bf16 work is set by
-// the tensor cores (989 TFLOP/s: 0.034 ms); wgmma is later work.
-//
-// Requires C_in % 4 == 0, C % 4 == 0, contiguous tensors aligned to four
-// values (16 bytes float, 8 bytes bf16), all of one type (checked by the
-// Python wrapper).
+// Requires C_in % 4 == 0, C % 4 == 0, contiguous float tensors aligned to
+// 16 bytes (checked by the Python wrapper).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
 
 #include "common.cuh"
@@ -183,18 +171,6 @@ extern "C" int wst_fused_gated_block_f32(const float* x, const float* gate_w,
                                          const float* res_b, float* resid, float* skip,
                                          int B, int L, int C_in, int C, int K,
                                          int dilation, void* stream) {
-  return launch(x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, B, L, C_in, C, K,
-                dilation, stream);
-}
-
-extern "C" int wst_fused_gated_block_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gate_w,
-                                          const __nv_bfloat16* gate_b,
-                                          const __nv_bfloat16* out_w,
-                                          const __nv_bfloat16* out_b,
-                                          const __nv_bfloat16* res_w,
-                                          const __nv_bfloat16* res_b, __nv_bfloat16* resid,
-                                          __nv_bfloat16* skip, int B, int L, int C_in, int C,
-                                          int K, int dilation, void* stream) {
   return launch(x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip, B, L, C_in, C, K,
                 dilation, stream);
 }

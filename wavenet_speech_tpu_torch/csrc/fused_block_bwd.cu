@@ -1,5 +1,5 @@
-// Fused causal gated residual block, backward, float32 or bf16, for Hopper
-// (sm_90a).
+// Fused causal gated residual block, backward, float32, for Hopper (sm_90a).
+// The bf16 form is fused_block_bwd_bf16.cu (tensor cores).
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/
 // residual_block.py (_bwd_kernel, launched by _pallas_bwd). The forward
@@ -38,26 +38,12 @@
 //    weights streamed from L2 16 rows deep, 4 x 4 register tiles. Pass (c)
 //    streams 16 frames a stage through 64 x 64 tiles of A and B.
 //
-// bf16 (the TPU kernel's own form, residual_block.py:245-300 and 382-384):
-// x, the weights, dresid and dskip are bf16 in device memory and widened to
-// float as they are loaded, so the gate is recomputed from bf16 x and Wg
-// with float sums, and da, dx and all six weight-gradient products are
-// float products of the widened values with the float dg and act of pass
-// (a) (act is not rounded to bf16 here: the TPU kernel's dWo reads its
-// float recompute). dx is stored rounded to bf16, and pass (d) rounds the
-// reduced gradients to bf16, the weights' type. The scratch dg, act and the
-// slice partials stay float. The card's least time for the same work is set
-// by the float products, as in float32 (the bf16 gate recompute alone would
-// take 0.019 ms on the tensor cores).
-//
 // The wrapper passes the weights transposed (Wo^T, Wg[tap]^T, Wr^T), so
 // every weight tile is read along its rows. Requires C_in % 4 == 0,
-// C % 4 == 0, K <= MAX_TAPS, contiguous tensors aligned to four values (16
-// bytes float, 8 bytes bf16), all of one type (checked by the Python
-// wrapper).
+// C % 4 == 0, K <= MAX_TAPS, contiguous float tensors aligned to 16 bytes
+// (checked by the Python wrapper).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
 
 #include "common.cuh"
@@ -307,7 +293,6 @@ bwd_wgrad_kernel(const Jobs jobs, float* __restrict__ part, int W, int N, int L,
 
 // ---- (d) add the slices' partial sums, in slice order, and store as T -----
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <typename T>
 __global__ void bwd_slice_sum_kernel(const float* __restrict__ part, T* __restrict__ out,
@@ -386,16 +371,6 @@ extern "C" int wst_fused_gated_block_bwd_f32(
     const float* gate_b, const float* woT, const float* wgT, const float* wrT, float* dx,
     float* grads, float* dg, float* act, float* part, int B, int L, int C_in, int C, int K,
     int dilation, void* stream) {
-  return launch(x, dresid, dskip, gate_w, gate_b, woT, wgT, wrT, dx, grads, dg, act, part, B, L,
-                C_in, C, K, dilation, stream);
-}
-
-extern "C" int wst_fused_gated_block_bwd_bf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* dresid, const __nv_bfloat16* dskip,
-    const __nv_bfloat16* gate_w, const __nv_bfloat16* gate_b, const __nv_bfloat16* woT,
-    const __nv_bfloat16* wgT, const __nv_bfloat16* wrT, __nv_bfloat16* dx,
-    __nv_bfloat16* grads, float* dg, float* act, float* part, int B, int L, int C_in, int C,
-    int K, int dilation, void* stream) {
   return launch(x, dresid, dskip, gate_w, gate_b, woT, wgT, wrT, dx, grads, dg, act, part, B, L,
                 C_in, C, K, dilation, stream);
 }

@@ -5,13 +5,10 @@
 // shared memory KC deep: rows of activations transposed into As (KC, AS),
 // rows of weights into Bs (KC, BS).
 //
-// Tensors in device memory are float or __nv_bfloat16 (the storage type T of
-// the loaders, four values a load: 16 or 8 bytes). Shared memory, registers
-// and every product are float: a bf16 value is widened exactly as it enters
-// shared memory, and a product of two widened bf16 values is exact in float.
+// Tensors in device memory, shared memory, registers and every product are
+// float (the loaders are templated on the storage type T, which is float).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -34,39 +31,20 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-
 
 // ---- storage type <-> float ------------------------------------------------
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Four consecutive values at p (16-byte aligned for float, 8 for bf16).
+// Four consecutive values at p (16-byte aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  // a bf16 is the upper half of a float: widening is a shift
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-// Rounds to nearest even, as the TPU kernel's astype(bf16).
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(a, b), pack_bf16x2(c, d));
 }
 
 // v as the storage type T would hold it (the identity for float).
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // As[k][r] = M[row0 + r][c0 + k], zero outside rows [0, L) and columns

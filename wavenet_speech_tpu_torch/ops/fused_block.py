@@ -17,27 +17,32 @@ gate. ``fused_gated_block_bwd`` is that backward; its plain version is
 ``fused_gated_block_bwd_ref``.
 
 Types: float32, or bfloat16 as the TPU kernels take it (residual_block.py:
-78-94, 245-300, 382-384), one type for every tensor of a call. In bf16 the
-kernels widen each value to float32 as they load it (a product of two bf16
-values is exact in float32), sum in float32, add the biases in float32,
-round ``act`` to bf16 before the 1x1 product (forward) and store the
-outputs rounded to bf16; the backward recomputes the gate from bf16 x and
-weights, takes da, dx and the six weight gradients as float32 products of
-the widened values with float32 dg and (unrounded) act, and rounds dx and
-the summed gradients to bf16. The plain versions do the same arithmetic in
-PyTorch. A bf16 CUDA tensor goes to the bf16 kernel or raises: it is never
-upcast to the float32 kernel. ``launches`` counts float32 launches and
-``launches_bf16`` bf16 ones.
+78-94, 245-300, 382-384), one type for every tensor of a call. float32 runs
+``csrc/fused_block.cu`` and ``csrc/fused_block_bwd.cu`` on the CUDA cores.
+bf16 runs ``csrc/fused_block_bf16.cu`` and ``csrc/fused_block_bwd_bf16.cu``
+on the tensor cores (wgmma, bf16 x bf16 -> float32, on shared-memory tiles
+that cp.async fills): the forward multiplies bf16 values exactly, sums in
+float32, adds the biases in float32, rounds ``act`` to bf16 before the 1x1
+product and stores the outputs rounded to bf16; the backward recomputes the
+gate from bf16 x and weights, keeps dg and the (unrounded) act float32 as
+the TPU kernel does, and takes each product with one of them as two bf16
+products over the split v = hi + lo (hi = bf16(v), lo = bf16(v - hi)),
+summed in float32; dx and the summed gradients are rounded to bf16. The
+plain versions do the same arithmetic in float32 PyTorch. The wrapper
+passes the weights in the layouts the kernels read (K-major copies where
+needed) and zero-pads channel widths that are not multiples of 8. A bf16
+CUDA tensor goes to the bf16 kernels or raises: it is never upcast to the
+float32 kernels. ``launches`` counts float32 launches and ``launches_bf16``
+bf16 ones.
 
 Where the time goes on an H100, at the bench shape (B=8, L=4505,
-C_in=C=256, K=2): the forward is 33 GFLOP against ~115 MB moved and the
-backward 85 GFLOP against ~150 MB, so both are bound by operations (f32,
-CUDA cores). The forward keeps ``act`` and the (L, 2C) gate out of device
-memory, reads each tap's rows of x separately (the TPU kernel's one
-contiguous halo window is >500 KB at d=512, over a block's 227 KB of shared
-memory), and streams the weights from L2 in 16-deep chunks. The backward
-writes dg and act once and reduces the weight gradients over fixed frame
-slices. See the source notes in ``csrc/``.
+C_in=C=256, K=2): the forward is 33 GFLOP against ~115 MB moved (float32)
+and the backward 85 GFLOP against ~150 MB, so both are bound by operations.
+The forward keeps ``act`` and the (L, 2C) gate out of device memory and
+reads each tap's rows of x separately (the TPU kernel's one contiguous halo
+window is >500 KB at d=512, over a block's 227 KB of shared memory). The
+backward writes dg and act once and reduces the weight gradients over
+fixed frame slices. See the source notes in ``csrc/``.
 """
 from __future__ import annotations
 
@@ -50,17 +55,21 @@ from wavenet_speech_tpu_torch.ops import _build
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid, skip;
-# B, L, C_in, C, K, dilation; stream
-_SIGNATURES = {f"wst_fused_gated_block_{t}": [_P] * 9 + [_I] * 6 + [_P]
-               for t in ("f32", "bf16")}
-# x, dresid, dskip, gate_w, gate_b, out_w^T, gate_w^T, res_w^T, dx, grads,
-# dg, act, part; B, L, C_in, C, K, dilation; stream
-_BWD_SIGNATURES = {**{f"wst_fused_gated_block_bwd_{t}": [_P] * 13 + [_I] * 6 + [_P]
-                      for t in ("f32", "bf16")},
+# csrc/fused_block.cu: x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid,
+# skip; csrc/fused_block_bf16.cu: x, gate_w^T, gate_b, out_w^T, out_b,
+# res_w^T, res_b, resid, skip; then B, L, C_in, C, K, dilation; stream
+_SIGNATURES = {"wst_fused_gated_block_f32": [_P] * 9 + [_I] * 6 + [_P]}
+_BF16_SIGNATURES = {"wst_fused_gated_block_bf16": [_P] * 9 + [_I] * 6 + [_P]}
+# csrc/fused_block_bwd.cu: x, dresid, dskip, gate_w, gate_b, out_w^T,
+# gate_w^T, res_w^T, dx, grads, dg, act, part; csrc/fused_block_bwd_bf16.cu:
+# x, dresid, dskip, gate_w^T, gate_b, out_w, gate_w, res_w, dx, grads, dg's
+# and act's hi/lo planes, da, part; then B, L, C_in, C, K, dilation; stream
+_BWD_SIGNATURES = {"wst_fused_gated_block_bwd_f32": [_P] * 13 + [_I] * 6 + [_P],
                    "wst_fused_block_bwd_slices": []}
-# the storage types the kernels take: the C entry points' suffix
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BWD_BF16_SIGNATURES = {"wst_fused_gated_block_bwd_bf16": [_P] * 14 + [_I] * 6 + [_P],
+                        "wst_fused_block_bwd_bf16_slices": []}
+_DTYPES = (torch.float32, torch.bfloat16)  # the storage types the kernels take
+BF16_ALIGN = 8  # channel widths the bf16 kernels take (16-byte rows); others are zero-padded
 MAX_TAPS = 8  # gate kernel widths the backward kernel takes
 
 
@@ -105,7 +114,7 @@ def _check_args(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation,
         if t.device != x.device:
             raise ValueError(f"fused_gated_block: {name} is on {t.device}, "
                              f"x on {x.device}")
-        if t.dtype not in _SUFFIX or t.dtype != x.dtype:
+        if t.dtype not in _DTYPES or t.dtype != x.dtype:
             raise ValueError(f"fused_gated_block: {name} is {t.dtype}; every "
                              f"tensor must be float32, or every one bfloat16")
         if not t.is_contiguous() or t.data_ptr() % (4 * t.element_size()):
@@ -138,19 +147,94 @@ def _check_args(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation,
 def _launch_fwd(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
     B, L, C_in, C, K = _check_args(x, gate_w, gate_b, out_w, out_b, res_w,
                                    res_b, dilation)
+    if x.dtype == torch.bfloat16:
+        return _launch_fwd_bf16(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation)
     resid = torch.empty((B, L, C), device=x.device, dtype=x.dtype)
     skip = torch.empty_like(resid)
     lib = _build.library("fused_block", _SIGNATURES)
-    suffix = _SUFFIX[x.dtype]
     with torch.cuda.device(x.device):
-        rc = getattr(lib, f"wst_fused_gated_block_{suffix}")(
+        rc = lib.wst_fused_gated_block_f32(
             x.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
             out_w.data_ptr(), out_b.data_ptr(), res_w.data_ptr(),
             res_b.data_ptr(), resid.data_ptr(), skip.data_ptr(),
             B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block")
-    _count(fused_gated_block, suffix)
+    _count(fused_gated_block, "f32")
+    return resid, skip
+
+
+def _round_up(n: int, m: int = BF16_ALIGN) -> int:
+    return -(-n // m) * m
+
+
+def _pad_last(t, n: int):
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _pad_halves(t, C: int, Cp: int):
+    """A last dimension 2C = [C | C] zero-padded to [Cp | Cp]."""
+    if C == Cp:
+        return t
+    return torch.cat([_pad_last(t[..., :C], Cp), _pad_last(t[..., C:], Cp)], -1)
+
+
+def _unpad_halves(t, C: int, Cp: int):
+    return t if C == Cp else torch.cat([t[..., :C], t[..., Cp:Cp + C]], -1)
+
+
+def _pad_rows(t, n: int, dim: int):
+    if t.shape[dim] == n:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, n - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def _pad_bf16(C_in, C, x, gate_w, gate_b, out_w, res_w, cotangents=(), out_b=None,
+              res_b=None):
+    """The bf16 kernels' operands with C_in and C zero-padded to multiples
+    of BF16_ALIGN (the identity at the model's widths). Zero channels change
+    no result: their gate is 0 + 0, their act tanh(0) * sigmoid(0) = 0, and
+    every weight row or column that reads them is zero."""
+    Ci, Cp = _round_up(C_in), _round_up(C)
+    contig = lambda t: None if t is None else t.contiguous()
+    return [contig(t) for t in (
+        _pad_last(x, Ci), _pad_rows(_pad_halves(gate_w, C, Cp), Ci, 1),
+        _pad_halves(gate_b, C, Cp), _pad_rows(_pad_halves(out_w, C, Cp), Cp, 0),
+        _pad_rows(_pad_last(res_w, Cp), Ci, 0),
+        *(_pad_last(t, Cp) for t in cotangents),
+        None if out_b is None else _pad_halves(out_b, C, Cp),
+        None if res_b is None else _pad_last(res_b, Cp))], Ci, Cp
+
+
+def _aligned(t):
+    """t, or a copy of it whose data is 16-byte aligned (cp.async rows)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_fwd_bf16(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
+    """B4-bf16 (csrc/fused_block_bf16.cu) with the weights K-major."""
+    B, L, C_in = x.shape
+    K, C = gate_w.shape[0], res_w.shape[1]
+    (x, gate_w, gate_b, out_w, res_w, out_b, res_b), Ci, Cp = _pad_bf16(
+        C_in, C, x, gate_w, gate_b, out_w, res_w, out_b=out_b, res_b=res_b)
+    wgT = gate_w.transpose(1, 2).contiguous()  # (K, 2C, C_in)
+    woT = out_w.T.contiguous()                 # (2C, C)
+    wrT = res_w.T.contiguous()                 # (C, C_in)
+    x, gate_b, out_b, res_b = (_aligned(t) for t in (x, gate_b, out_b, res_b))
+    resid = torch.empty((B, L, Cp), device=x.device, dtype=x.dtype)
+    skip = torch.empty_like(resid)
+    lib = _build.library("fused_block_bf16", _BF16_SIGNATURES)
+    with torch.cuda.device(x.device):
+        rc = lib.wst_fused_gated_block_bf16(
+            x.data_ptr(), wgT.data_ptr(), gate_b.data_ptr(), woT.data_ptr(),
+            out_b.data_ptr(), wrT.data_ptr(), res_b.data_ptr(), resid.data_ptr(),
+            skip.data_ptr(), B, L, Ci, Cp, K, dilation,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "fused_gated_block")
+    _count(fused_gated_block, "bf16")
+    if Cp != C:
+        resid, skip = resid[..., :C], skip[..., :C]
     return resid, skip
 
 
@@ -251,30 +335,77 @@ def fused_gated_block_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
         raise ValueError(f"fused_gated_block_bwd: unsupported device {x.device}")
     B, L, C_in, C, K = _check_args(x, gate_w, gate_b, out_w, None, res_w, None,
                                    dilation, dresid=dresid, dskip=dskip)
+    if x.dtype == torch.bfloat16:
+        return _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation)
     lib = _build.library("fused_block_bwd", _BWD_SIGNATURES)
-    suffix = _SUFFIX[x.dtype]
     dev = x.device
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)  # scratch
-    sizes = (K * C_in * 2 * C, 2 * C, C * 2 * C, 2 * C, C_in * C, C)
-    grads = torch.empty(sum(sizes), device=dev, dtype=x.dtype)
-    dx = torch.empty((B, L, C_in), device=dev, dtype=x.dtype)
+    grads = empty(K * C_in * 2 * C + 2 * C + C * 2 * C + 2 * C + C_in * C + C)
+    dx = empty(B, L, C_in)
     dg, act = empty(B, L, 2 * C), empty(B, L, C)
     part = empty(lib.wst_fused_block_bwd_slices(), grads.numel())
     woT = out_w.T.contiguous()
     wgT = gate_w.transpose(1, 2).contiguous()
     wrT = res_w.T.contiguous()
     with torch.cuda.device(dev):
-        rc = getattr(lib, f"wst_fused_gated_block_bwd_{suffix}")(
+        rc = lib.wst_fused_gated_block_bwd_f32(
             x.data_ptr(), dresid.data_ptr(), dskip.data_ptr(), gate_w.data_ptr(),
             gate_b.data_ptr(), woT.data_ptr(), wgT.data_ptr(), wrT.data_ptr(),
             dx.data_ptr(), grads.data_ptr(), dg.data_ptr(), act.data_ptr(),
             part.data_ptr(), B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block_bwd")
-    _count(fused_gated_block_bwd, suffix)
+    _count(fused_gated_block_bwd, "f32")
+    return (dx, *_split_grads(grads, K, C_in, C))
+
+
+def _split_grads(grads, K: int, C_in: int, C: int):
+    sizes = (K * C_in * 2 * C, 2 * C, C * 2 * C, 2 * C, C_in * C, C)
     dwg, dbg, dwo, dbo, dwr, dbr = torch.split(grads, sizes)
-    return (dx, dwg.view(K, C_in, 2 * C), dbg, dwo.view(C, 2 * C), dbo,
+    return (dwg.view(K, C_in, 2 * C), dbg, dwo.view(C, 2 * C), dbo,
             dwr.view(C_in, C), dbr)
+
+
+def _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
+    """B5-bf16 (csrc/fused_block_bwd_bf16.cu): gate_w^T for the gate
+    recompute, out_w, gate_w and res_w as stored; dg and act go through
+    scratch as bf16 hi and lo planes."""
+    B, L, C_in = x.shape
+    K, C = gate_w.shape[0], res_w.shape[1]
+    (x, gate_w, gate_b, out_w, res_w, dresid, dskip, _, _), Ci, Cp = _pad_bf16(
+        C_in, C, x, gate_w, gate_b, out_w, res_w, (dresid, dskip))
+    x, gate_b, dresid, dskip = (_aligned(t) for t in (x, gate_b, dresid, dskip))
+    wgT = gate_w.transpose(1, 2).contiguous()
+    lib = _build.library("fused_block_bwd_bf16", _BWD_BF16_SIGNATURES)
+    dev, bf = x.device, torch.bfloat16
+    n_grads = K * Ci * 2 * Cp + 2 * Cp + Cp * 2 * Cp + 2 * Cp + Ci * Cp + Cp
+    grads = torch.empty(n_grads, device=dev, dtype=bf)
+    dx = torch.empty((B, L, Ci), device=dev, dtype=bf)
+    dgs = torch.empty((2, B, L, 2 * Cp), device=dev, dtype=bf)  # dg's hi, lo planes
+    acts = torch.empty((2, B, L, Cp), device=dev, dtype=bf)     # act's hi, lo planes
+    da = torch.empty((B, L, Cp), device=dev, dtype=torch.float32)
+    part = torch.empty((lib.wst_fused_block_bwd_bf16_slices(), n_grads), device=dev,
+                       dtype=torch.float32)
+    with torch.cuda.device(dev):
+        rc = lib.wst_fused_gated_block_bwd_bf16(
+            x.data_ptr(), dresid.data_ptr(), dskip.data_ptr(), wgT.data_ptr(),
+            gate_b.data_ptr(), out_w.data_ptr(), gate_w.data_ptr(), res_w.data_ptr(),
+            dx.data_ptr(), grads.data_ptr(), dgs.data_ptr(), acts.data_ptr(),
+            da.data_ptr(), part.data_ptr(), B, L, Ci, Cp, K, dilation,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "fused_gated_block_bwd")
+    _count(fused_gated_block_bwd, "bf16")
+    return _unpad_grads((dx, *_split_grads(grads, K, Ci, Cp)), C_in, C, Cp)
+
+
+def _unpad_grads(grads, C_in: int, C: int, Cp: int):
+    """The backward's outputs (dx, dWg, dbg, dWo, dbo, dWr, dbr) at widths
+    padded by ``_pad_bf16`` cut back to C_in and C."""
+    dx, dwg, dbg, dwo, dbo, dwr, dbr = grads
+    if (dx.shape[-1], Cp) == (C_in, C):
+        return grads
+    return (dx[..., :C_in], _unpad_halves(dwg[:, :C_in], C, Cp), _unpad_halves(dbg, C, Cp),
+            _unpad_halves(dwo[:C], C, Cp), _unpad_halves(dbo, C, Cp), dwr[:C_in, :C], dbr[:C])
 
 
 fused_gated_block_bwd.launches = fused_gated_block_bwd.launches_bf16 = 0
