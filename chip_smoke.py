@@ -5,10 +5,10 @@ one NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
-(and prints ptxas's registers and spills of the bf16 tensor-core kernels),
-then, at the full width of the bench model (WaveNet 30 blocks + classifier
-18 blocks, 256 channels, 5 labels; random weights from a seed; B=8 one-hot
-reads of L=4505):
+(and prints ptxas's registers and spills of the bf16 tensor-core kernels
+and the CTC kernels), then, at the full width of the bench model (WaveNet
+30 blocks + classifier 18 blocks, 256 channels, 5 labels; random weights
+from a seed; B=8 one-hot reads of L=4505):
 
   1. holds the fused gated block kernel against its plain version at every
      one of the 30 dilations, on the activations the forward feeds it;
@@ -22,7 +22,9 @@ reads of L=4505):
      stream's scale, basecalls the reads through ``Basecaller`` (beam W=7,
      then greedy), counting kernel launches, and checks the strings against
      the same pipeline run with both plain versions, and a small model
-     against the CPU;
+     against the CPU; then holds the causal block's four kernels (B4, B5,
+     float32 and bf16) against their plain versions once each at widths
+     the kernels pad (C_in=6, C=10) and K=9 taps (PAD_BLOCK);
   5. trains: the f32 joint step of bench.py:105-149 (JointLoss, Adagrad
      3e-5, the bench batch of B=8 reads, S=429 labels) at full width.
      At the port's init, and again with res_w scaled as in 4, it holds
@@ -195,6 +197,11 @@ CUT_DEPTHS = ((([1, 2, 4], [1, 2]), True),
 BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
 TENSOR_CORE_SOURCES = ("fused_block_bf16", "fused_block_bwd_bf16")  # wgmma kernels
+PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc",)  # registers and spills printed
+# the causal block at widths the kernels do not take as they are (C_in=6,
+# C=10: zero-padded to 8, 12 in float32 and 8, 16 in bf16) and more taps
+# than one pass of the backward's reduction takes (K=9): B, L, C_in, C, K, d
+PAD_BLOCK = (2, 300, 6, 10, 9, 7)
 
 
 def log(*a):
@@ -242,13 +249,13 @@ def host_ms(fn, reps=1):
 
 
 def start_ptxas_report(tmp):
-    """A second compile of the tensor-core kernels' sources with
-    ``-Xptxas -v`` (into tmp, beside the build): their registers and
-    spills."""
+    """A second compile of the tensor-core kernels' and the CTC kernels'
+    sources with ``-Xptxas -v`` (into tmp, beside the build): their
+    registers and spills."""
     return {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(tmp) / f"{name}.so"),
          str(_build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name in TENSOR_CORE_SOURCES}
+        text=True) for name in PTXAS_SOURCES}
 
 
 def demangled_kernel(mangled):
@@ -440,6 +447,37 @@ def report_sensitivity(label, logits, plain_logits, lengths, S):
         f"{sum(a != b for a, b in zip(g1, g0))}/{B}; max beam score diff "
         f"{float((s1 - s0).abs().max()):.3e}")
     return diff
+
+
+def phase_padded_block(dev):
+    """The causal block at PAD_BLOCK's widths and taps: B4, B5, B4-bf16 and
+    B5-bf16 each launched once (the wrapper pads the widths; the backward
+    takes the taps in two passes) against their plain versions at the
+    tolerances of phases 1, 5 and 6; each wrapper's count must show its
+    launch (a CUDA tensor never falls back to the plain version)."""
+    Bx, Lx, C_in, C, K, d = PAD_BLOCK
+    g = torch.Generator().manual_seed(SEED + 6)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(dev)
+    x, dr, ds = u(Bx, Lx, C_in), u(Bx, Lx, C), u(Bx, Lx, C)
+    fw = (u(K, C_in, 2 * C) * 0.3, u(2 * C) * 0.1, u(C, 2 * C) * 0.3, u(2 * C) * 0.1,
+          u(C_in, C) * 0.3, u(C) * 0.1)
+    gw, gb, ow, _, rw, _ = fw
+    reset_counts()
+    b4_err, _ = hold_b4(d, fused_gated_block(x, *fw, d), fused_gated_block_ref(x, *fw, d))
+    b5_errs, _ = hold_b5(d, fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d),
+                         fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d))
+    bf = lambda t: t.to(BF16)
+    f16_err, b16_errs = check_bf16_block(bf(x), tuple(bf(t) for t in fw), d, bf(dr), bf(ds))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {"fused_gated_block": 1, "fused_gated_block_bwd": 1, "fused_gated_block_bf16": 1,
+            "fused_gated_block_bwd_bf16": 1}
+    if counts != want:
+        raise AssertionError(f"padded block: launches {counts}, expected {want}")
+    log(f"padded block (B={Bx}, L={Lx}, C_in={C_in}, C={C}, K={K}, d={d}): B4, B5, B4-bf16, "
+        f"B5-bf16 each launched once, within phases 1/5/6's tolerances; max_abs_err B4 "
+        f"{b4_err:.3e}, B5 {max(b5_errs):.3e}, B4-bf16 {f16_err:.3e}, B5-bf16 "
+        f"{max(b16_errs):.3e}")
 
 
 # ---- 5. training --------------------------------------------------------------
@@ -636,6 +674,15 @@ def phase_fused_block_bwd(blocks_io):
     return summary
 
 
+def one_block_a_sequence():
+    """The CTC kernels' geometry as on a card of one SM: no cluster, one
+    block a sequence (runs of 2 states, 448 threads at J=859), the
+    yardstick of the cluster split."""
+    geometry = ctc_scan.ctc_geometry
+    return mock.patch.object(ctc_scan, "ctc_geometry",
+                             lambda J, rings, B, sms: geometry(J, rings, B, 1))
+
+
 def check_close(name, got, want, rtol, atol):
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
@@ -679,6 +726,12 @@ def phase_ctc(lp, skip, logits, batch):
 
     ms1 = cuda_ms(lambda: ctc_fwd(lp, skip, lens, lab), 5)
     ms2 = cuda_ms(lambda: ctc_bwd(lp, want[1], skip, lens, lab, want[0], cot), 5)
+    with one_block_a_sequence():
+        one = (cuda_ms(lambda: ctc_fwd(lp, skip, lens, lab), 5),
+               cuda_ms(lambda: ctc_bwd(lp, want[1], skip, lens, lab, want[0], cot), 5))
+    log(f"B1, B2 on one block a sequence (no cluster): {one[0]:.4f}, "
+        f"{one[1]:.4f} ms, against {ms1:.4f}, {ms2:.4f} on the launch geometry "
+        f"{ctc_scan.ctc_geometry(J, 1, Bx, ctc_scan._sms(lp.device))} (R, C, threads, D)")
     lp_lib = torch.log_softmax(logits, -1).transpose(0, 1).contiguous().requires_grad_(True)
     lib_fwd_ms = cuda_ms(lambda: F.ctc_loss(lp_lib.detach(), *lib_args, reduction="sum"), 5)
     lib_loss = F.ctc_loss(lp_lib, *lib_args, reduction="sum")
@@ -1792,6 +1845,8 @@ def main() -> int:
         f"samples_per_s={B * L / call_ms * 1e3:.0f} (beam W={BEAM_WIDTH}, B={B}, L={L})")
     log(f"serving peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    with torch.inference_mode():
+        phase_padded_block(dev)
 
     # ---- 5. training: the joint step at full width
     del model, caller, greedy, x, logits, plain_logits, lp

@@ -103,8 +103,8 @@ def test_bf16_channel_padding_changes_nothing(B, L, C_in, C, K, d):
     x, gw, gb, ow, ob, rw, rb = (u(B, L, C_in), u(K, C_in, 2 * C), u(2 * C), u(C, 2 * C),
                                  u(2 * C), u(C_in, C), u(C))
     dr, ds = u(B, L, C), u(B, L, C)
-    (xp, gwp, gbp, owp, rwp, drp, dsp, obp, rbp), Ci, Cp = fb._pad_bf16(
-        C_in, C, x, gw, gb, ow, rw, (dr, ds), out_b=ob, res_b=rb)
+    (xp, gwp, gbp, owp, rwp, drp, dsp, obp, rbp), Ci, Cp = fb._pad_widths(
+        fb.BF16_ALIGN, C_in, C, x, gw, gb, ow, rw, (dr, ds), out_b=ob, res_b=rb)
     assert (Ci % fb.BF16_ALIGN, Cp % fb.BF16_ALIGN) == (0, 0)
     for got, want in zip(fb.fused_gated_block_ref(xp, gwp, gbp, owp, obp, rwp, rbp, d),
                          fb.fused_gated_block_ref(x, gw, gb, ow, ob, rw, rb, d)):

@@ -209,3 +209,30 @@ def test_kernel_argument_checks(case):
         lp = torch.zeros((1, 1, ctc_scan.MAX_STATES + 2))
     with pytest.raises(ValueError):
         ctc_scan._check("ctc_fwd", lp, torch.zeros(lp.shape[1:]))
+
+
+@pytest.mark.parametrize("B", [8, 200])
+@pytest.mark.parametrize("J", [3, 859, 1401, 8191, ctc_scan.MAX_STATES])
+def test_kernel_launch_geometry(J, B):
+    """The launch geometry of B1 (one ring row a frame) and B2 (two) on a
+    132-SM card: C blocks a sequence (a cluster of at most 4) cover J with
+    whole warps of runs of R states, plus the cluster edge's warp, within
+    the kernel's thread limit (576 for runs of 8, else 1024); more than the
+    fewest blocks only while every block has an SM of its own; the frame
+    ring at least 2 frames deep and at most MAX_RING; the ring, the warp
+    and cluster edges and the scratch within a block's shared memory on an
+    H100 (csrc/ctc.cu ``smem_bytes``). At the bench shape (B=8, J=859):
+    4 blocks of 215 states, one a thread, a ring of 16 frames."""
+    for rings in (1, 2):
+        R, C, threads, D = ctc_scan.ctc_geometry(J, rings, B, 132)
+        warps = threads // 32 - 1
+        assert R in ctc_scan.RUNS and C in ctc_scan.CLUSTERS and threads % 32 == 0
+        assert threads <= (576 if R == 8 else 1024)
+        Jc = 32 * R * warps
+        assert C * Jc >= J > C * Jc - C * 32 * R
+        assert C == 1 or B * C <= 132 or -(-J // (C // 2)) > ctc_scan.MAX_PART
+        assert 2 <= D <= ctc_scan.MAX_RING
+        smem = 16 * 32 + 4 * (rings * D * Jc + 4 * (warps + 1) + 2 * 32 + 36)
+        assert smem <= ctc_scan.SMEM_LIMIT
+    if (J, B) == (859, 8):
+        assert ctc_scan.ctc_geometry(J, 2, B, 132) == (1, 4, 256, 16)

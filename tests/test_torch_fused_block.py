@@ -72,7 +72,8 @@ def _cpu_args():
                                   "dilation", "rank", "out_w", "res_w"])
 def test_kernel_argument_checks(case):
     """The checks the wrapper makes before a launch (run on CPU tensors
-    here; the launch itself needs the card)."""
+    here; the launch itself needs the card). Every case but ``divisible``
+    raises; C_in=6 is accepted and padded to the kernels' multiple of 4."""
     a = _cpu_args()
     d = 2
     if case == "dtype":
@@ -82,7 +83,13 @@ def test_kernel_argument_checks(case):
     elif case == "contiguous":
         a[5] = a[5].t().contiguous().t()
     elif case == "divisible":
+        # widths the kernels do not take are accepted and zero-padded
         a = [torch.from_numpy(v) for v in _args(0, C_in=6, C=8)]
+        assert fused_block._check_args(*a, d) == (2, 61, 6, 8, 2)
+        padded, Ci, Cp = fused_block._pad_widths(fused_block.F32_ALIGN, 6, 8, *a[:4],
+                                                 a[5], out_b=a[4], res_b=a[6])
+        assert (Ci, Cp) == (8, 8) and padded[0].shape == (2, 61, 8)
+        return
     elif case == "dilation":
         d = 0
     elif case == "rank":
@@ -126,3 +133,28 @@ def test_autograd_function_accepts_grad_tensors(monkeypatch):
     assert seen == [(2, 61, 8, 8, 2)]
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.parametrize("align", ["F32_ALIGN", "BF16_ALIGN"])
+def test_padded_forward_matches_unpadded(monkeypatch, align):
+    """The CUDA path's zero-padding of the widths, end to end on the CPU:
+    C_in=6, C=10, K=9 padded to the kernels' multiple, the plain version in
+    place of the float32 kernel, the outputs cut back; equal to the plain
+    version at the unpadded widths within 1e-6 relative (zero channels add
+    only zero products, which BLAS may sum in another order)."""
+    monkeypatch.setattr(fused_block, "F32_ALIGN", getattr(fused_block, align))
+    seen = []
+
+    def kernel(*a):
+        seen.append((a[0].shape[-1], a[5].shape[-1]))
+        return fused_gated_block_ref(*a)
+
+    monkeypatch.setattr(fused_block, "_fwd_f32", kernel)
+    a = [torch.from_numpy(v) for v in _args(5, C_in=6, C=10, K=9)]
+    got = fused_block._launch_fwd(*a, 3)
+    want = fused_gated_block_ref(*a, 3)
+    assert seen == [(8, 12) if align == "F32_ALIGN" else (8, 16)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2, 61, 10)
+        assert g.is_contiguous()  # the next block takes resid as its input
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(w.abs().max()))

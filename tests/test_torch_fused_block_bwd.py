@@ -137,8 +137,38 @@ def test_bwd_kernel_argument_checks(case):
         dr = dr.transpose(0, 1).contiguous().transpose(0, 1)
     check = lambda: fused_block._check_args(x, gw, gb, ow, None, rw, None, 3,
                                             dresid=dr, dskip=ds)
-    if case == "accept":
-        assert check() == (2, 30, 8, 8, 2)
+    if case in ("accept", "taps"):  # any number of taps: K=9 is accepted
+        assert check() == (2, 30, 8, 8, K)
     else:
         with pytest.raises(ValueError):
             check()
+
+
+@pytest.mark.parametrize("align", ["F32_ALIGN", "BF16_ALIGN"])
+def test_padded_bwd_matches_unpadded(monkeypatch, align):
+    """The CUDA path's zero-padding for the backward, end to end on the
+    CPU: C_in=6, C=10, K=9, the operands and cotangents padded to the
+    kernels' multiple, the plain version in place of the float32 kernel,
+    every gradient cut back; equal to the plain version at the unpadded
+    widths within 1e-6 relative (zero channels add only zero products)."""
+    from wavenet_speech_tpu_torch.ops import fused_block
+    monkeypatch.setattr(fused_block, "F32_ALIGN", getattr(fused_block, align))
+    seen = []
+
+    def kernel(*a):
+        seen.append((a[0].shape[-1], a[4].shape[-1]))
+        return fused_gated_block_bwd_ref(*a)
+
+    monkeypatch.setattr(fused_block, "_bwd_f32", kernel)
+    rng = np.random.default_rng(9)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3)
+    K, C_in, C = 9, 6, 10
+    args = (mk(2, 70, C_in), mk(K, C_in, 2 * C), mk(2 * C), mk(C, 2 * C), mk(C_in, C),
+            mk(2, 70, C), mk(2, 70, C))
+    got = fused_block._launch_bwd(*args, 4)
+    want = fused_gated_block_bwd_ref(*args, 4)
+    assert seen == [(8, 12) if align == "F32_ALIGN" else (8, 16)]
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(w.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")

@@ -40,10 +40,15 @@ def cuda():
     return torch.device("cuda")
 
 
+# widths that are not multiples of 4 (zero-padded) and K > 8 taps
+PADDED_SHAPES = [(2, 100, 6, 10, 3, 4), (2, 100, 6, 10, 9, 4)]
+
+
 @pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
                                             (1, 37, 8, 12, 3, 5),
                                             (2, 300, 64, 64, 2, 128),
-                                            (3, 129, 260, 132, 2, 7)])
+                                            (3, 129, 260, 132, 2, 7),
+                                            *PADDED_SHAPES])
 def test_fused_block_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     g = torch.Generator().manual_seed(d)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
@@ -88,7 +93,8 @@ def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
 @pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
                                             (1, 37, 8, 12, 3, 5),
                                             (2, 700, 64, 64, 2, 512),
-                                            (3, 129, 260, 132, 2, 7)])
+                                            (3, 129, 260, 132, 2, 7),
+                                            *PADDED_SHAPES])
 def test_fused_block_bwd_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     g = torch.Generator().manual_seed(d + 1)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
@@ -140,12 +146,26 @@ def _ctc_inputs(cuda, B, T, S, C, seed):
     return [t.to(cuda) for t in (lp, skip, lens, lab, cot)]
 
 
-@pytest.mark.parametrize("B,T,S,C,seg", [(3, 50, 6, 5, False),
-                                         (8, 300, 429, 5, False),   # J = 859
-                                         (2, 100, 700, 30, False),  # J = 1401 > 1024
-                                         (2, 64, 10, 5, True)])
-def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg):
+# the ring's edges: T below the ring's depth, J = 3, the largest J, lengths
+# ending mid-ring, a segment with tl_true < T at the bench's J (4 blocks a
+# sequence), and one with no frame before tl_true (nothing crosses between
+# the blocks)
+@pytest.mark.parametrize("B,T,S,C,seg,lengths", [
+    (3, 50, 6, 5, False, None),
+    (8, 300, 429, 5, False, None),           # J = 859
+    (2, 100, 700, 30, False, None),          # J = 1401 > 1024
+    (2, 64, 10, 5, True, None),
+    (3, 1, 6, 5, False, None),               # T = 1
+    (3, 3, 6, 5, False, None),               # T = 3
+    (4, 40, 1, 5, False, None),              # J = 3
+    (2, 6, 4095, 30, False, None),           # J = 8191
+    (4, 60, 20, 5, False, [60, 21, 9, 37]),  # lengths end mid-ring
+    (8, 40, 429, 5, True, None),             # a segment at J = 859
+    (8, 4, 429, 5, True, None)])             # ... wholly past tl_true (T - 5 < 0)
+def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg, lengths):
     lp, skip, lens, lab, cot = _ctc_inputs(cuda, B, T, S, C, T + S)
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     J = lp.shape[2]
     kw = {}
     if seg:  # a later segment: carried state, frame offset, padded tail
@@ -235,7 +255,7 @@ def _fwd_atol(want, out_w):
 # ragged L shorter than the dilation (every tap but the last reads zeros)
 BF16_SHAPES = [(2, 100, 32, 32, 2, 4), (1, 37, 8, 12, 3, 5), (2, 700, 64, 64, 2, 512),
                (3, 129, 260, 132, 2, 7), (1, 4505, 256, 256, 2, 1),
-               (1, 4505, 256, 256, 2, 512), (2, 65, 256, 256, 2, 100)]
+               (1, 4505, 256, 256, 2, 512), (2, 65, 256, 256, 2, 100), *PADDED_SHAPES]
 
 
 @pytest.mark.parametrize("B,L,C_in,C,K,d", BF16_SHAPES)

@@ -100,7 +100,7 @@ def test_model_init_is_seeded_and_in_bounds():
 
 
 def test_model_entry_points_refuse_silent_cpu():
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A8"):
         Model("raw-ctcnet", device="cpu")
     with pytest.raises(ValueError):
         Model("bogus", device="cpu")

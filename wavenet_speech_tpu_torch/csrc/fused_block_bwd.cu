@@ -40,11 +40,15 @@
 //
 // The wrapper passes the weights transposed (Wo^T, Wg[tap]^T, Wr^T), so
 // every weight tile is read along its rows. Requires C_in % 4 == 0,
-// C % 4 == 0, K <= MAX_TAPS, contiguous float tensors aligned to 16 bytes
-// (checked by the Python wrapper).
+// C % 4 == 0 (the wrapper zero-pads other widths), contiguous float tensors
+// aligned to 16 bytes (checked by the Python wrapper). Any K >= 1: pass (c)
+// takes the K + 2 products of its reduction MAX_TAPS + 2 a launch.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <algorithm>
+#include <vector>
 
 #include "common.cuh"
 #include "tile.cuh"
@@ -52,7 +56,7 @@
 namespace {
 
 constexpr int NSLICE = 16;   // frame slices of the weight-gradient reduction
-constexpr int MAX_TAPS = 8;
+constexpr int MAX_TAPS = 8;   // taps of one launch of pass (c)
 constexpr int WT = 64;       // weight-gradient output tile (WT x WT)
 constexpr int WK = 16;       // frames a stage
 constexpr int WNT = 256;     // threads, 16 x 16, each a 4 x 4 register tile
@@ -310,7 +314,7 @@ template <typename T>
 int launch(const T* x, const T* dresid, const T* dskip, const T* gate_w, const T* gate_b,
            const T* woT, const T* wgT, const T* wrT, T* dx, T* grads, float* dg, float* act,
            float* part, int B, int L, int C_in, int C, int K, int dilation, void* stream) {
-  if (C_in % 4 || C % 4 || K < 1 || K > MAX_TAPS || dilation < 1 || B < 0 || L < 0)
+  if (C_in % 4 || C % 4 || K < 1 || dilation < 1 || B < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C2 = 2 * C;
@@ -332,28 +336,38 @@ int launch(const T* x, const T* dresid, const T* dskip, const T* gate_w, const T
     rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
-  Jobs jobs;
-  int tiles = 0;
+  std::vector<Job> all;
   // a_t / b_t: the operand is stored in T (x, dresid, dskip), else float (dg, act)
   auto add = [&](const void* a0, const void* a1, int a_t, int a_split, int a_cols, int a_shift,
                  const void* b0, const void* b1, int b_t, int b_split, int b_cols, int out,
                  int bias) {
-    Job& j = jobs.job[jobs.n++];
-    j = Job{a0, a1, b0, b1, a_t, b_t, a_split, a_cols, a_shift, b_split, b_cols, out, bias,
-            cdiv(b_cols, WT), tiles};
-    tiles += cdiv(a_cols, WT) * j.tiles_n;
+    all.push_back(Job{a0, a1, b0, b1, a_t, b_t, a_split, a_cols, a_shift, b_split, b_cols, out,
+                      bias, cdiv(b_cols, WT), 0});
   };
-  jobs.n = 0;
   for (int tap = 0; tap < K; ++tap)
     add(x, x, 1, C_in, C_in, (K - 1 - tap) * dilation, dg, dg, 0, C2, C2, tap * C_in * C2,
         tap == 0 ? o_dbg : -1);
   add(act, act, 0, C, C, 0, dresid, dskip, 1, C, C2, o_dwo, o_dbo);
   add(x, x, 1, C_in, C_in, 0, dresid, dresid, 1, C, C, o_dwr, o_dbr);
   const int rows = cdiv(N > 0 ? N : 1, NSLICE);
-  bwd_wgrad_kernel<T><<<dim3(tiles, NSLICE), WNT, 0, st>>>(jobs, part, W, N, L > 0 ? L : 1,
-                                                            rows);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
+  int rc = 0;
+  // MAX_TAPS + 2 jobs a launch (one launch for K <= MAX_TAPS); each writes
+  // its own part of the gradient layout
+  for (size_t first = 0; first < all.size(); first += MAX_TAPS + 2) {
+    Jobs jobs;
+    jobs.n = 0;
+    int tiles = 0;
+    for (size_t i = first; i < std::min(all.size(), first + MAX_TAPS + 2); ++i) {
+      Job& j = jobs.job[jobs.n++];
+      j = all[i];
+      j.tile0 = tiles;
+      tiles += cdiv(j.a_cols, WT) * j.tiles_n;
+    }
+    bwd_wgrad_kernel<T><<<dim3(tiles, NSLICE), WNT, 0, st>>>(jobs, part, W, N, L > 0 ? L : 1,
+                                                              rows);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
   bwd_slice_sum_kernel<T><<<cdiv(W, 256), 256, 0, st>>>(part, grads, W);
   return (int)cudaGetLastError();
 }

@@ -52,9 +52,15 @@
 // shared-memory staging tile as whole 16-byte pieces.
 //
 // Requires C_in % 8 == 0, C % 8 == 0 (the wrapper zero-pads other widths),
-// K <= MAX_TAPS, contiguous bf16 tensors aligned to 16 bytes.
+// contiguous bf16 tensors aligned to 16 bytes. Any K >= 1: above MAX_TAPS
+// taps, dx is summed in float32 planes of MAX_TAPS taps each (in `part`,
+// before (c) uses it) and rounded once, and (c) takes MAX_TAPS + 2
+// products a launch.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <vector>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -349,11 +355,14 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// ---- (d) add the slices' partial sums, in slice order, and round to bf16 ---
-__global__ void bwd_slice_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out, int W) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < W; e += gridDim.x * blockDim.x) {
+// ---- (d) add n planes of W partial sums, in plane order, and round to bf16 --
+// (the weight gradients' NSLICE slices; dx's tap groups above MAX_TAPS taps)
+__global__ void bwd_slice_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                                     size_t W, int n) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < W;
+       e += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < NSLICE; ++k) s += part[(size_t)k * W + e];
+    for (int k = 0; k < n; ++k) s += part[(size_t)k * W + e];
     out[e] = __float2bfloat16_rn(s);
   }
 }
@@ -372,8 +381,7 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
                                               bf16* grads, bf16* dgs, bf16* acts, float* da,
                                               float* part, int B, int L, int C_in, int C, int K,
                                               int dilation, void* stream) {
-  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || K > MAX_TAPS || dilation < 1 || B < 0 ||
-      L < 0)
+  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || B < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C2 = 2 * C, N = B * L;
@@ -396,26 +404,38 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
         GateArgs{x, wgT, gate_b, da, dg_hi, dg_lo, act_hi, act_lo, L, C_in, C, K, dilation});
     rc = (int)cudaGetLastError();
     if (rc) return rc;
-    r = RowsArgs{};  // dx = sum_tap (dg_hi + dg_lo)[t + s_tap] @ gate_w[tap]^T + dresid @ res_w^T
+    // dx = sum_tap (dg_hi + dg_lo)[t + s_tap] @ gate_w[tap]^T + dresid @ res_w^T,
+    // one product of MAX_TAPS taps at most; more taps sum their groups'
+    // float32 planes, in order, in part
+    const int groups = cdiv(K, MAX_TAPS);
     const bf16* planes[2] = {dg_hi, dg_lo};
-    for (int tap = 0; tap < K; ++tap)
-      for (const bf16* plane : planes)
-        r.term[r.nterm++] = Term{plane, plane, gate_w + (size_t)tap * C_in * C2, C2, C2,
-                                 (K - 1 - tap) * dilation};
-    r.term[r.nterm++] = Term{dresid, dresid, res_w, C, C, 0};
-    r.L = L, r.N = C_in, r.out_bf16 = dx;
-    bwd_rows_kernel<<<grid, NT, SMEM, st>>>(r);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
+    for (int g = 0; g < groups; ++g) {
+      r = RowsArgs{};
+      for (int tap = g * MAX_TAPS; tap < std::min(K, (g + 1) * MAX_TAPS); ++tap)
+        for (const bf16* plane : planes)
+          r.term[r.nterm++] = Term{plane, plane, gate_w + (size_t)tap * C_in * C2, C2, C2,
+                                   (K - 1 - tap) * dilation};
+      if (g == 0) r.term[r.nterm++] = Term{dresid, dresid, res_w, C, C, 0};
+      r.L = L, r.N = C_in;
+      if (groups == 1)
+        r.out_bf16 = dx;
+      else
+        r.out_f32 = part + (size_t)g * N * C_in;
+      bwd_rows_kernel<<<grid, NT, SMEM, st>>>(r);
+      rc = (int)cudaGetLastError();
+      if (rc) return rc;
+    }
+    if (groups > 1) {
+      bwd_slice_sum_kernel<<<cdiv(N * C_in, 256), 256, 0, st>>>(part, dx, (size_t)N * C_in,
+                                                                groups);
+      rc = (int)cudaGetLastError();
+      if (rc) return rc;
+    }
   }
-  Jobs jobs;
-  jobs.n = 0;
-  int tiles = 0;
+  std::vector<Job> all;
   auto add = [&](Job j) {
     j.tiles_n = cdiv(j.b_cols, 128);
-    j.tile0 = tiles;
-    tiles += cdiv(j.a_cols, 128) * j.tiles_n;
-    jobs.job[jobs.n++] = j;
+    all.push_back(j);
   };
   for (int tap = 0; tap < K; ++tap)
     add(Job{{x, x}, {dg_hi, dg_lo}, {dg_hi, dg_lo}, C_in, (K - 1 - tap) * dilation, C2, C2, 2, 2,
@@ -423,9 +443,22 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
   add(Job{{act_hi, act_lo}, {dresid, dresid}, {dskip, dskip}, C, 0, C, C2, 2, 1, o_dwo, o_dbo, 0, 0});
   add(Job{{x, x}, {dresid, dresid}, {dresid, dresid}, C_in, 0, C, C, 1, 1, o_dwr, o_dbr, 0, 0});
   const int rows = cdiv(N > 0 ? N : 1, NSLICE);
-  bwd_wgrad_kernel<<<dim3(tiles, NSLICE), NT, SMEM_W, st>>>(jobs, part, W, N, L > 0 ? L : 1, rows);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  bwd_slice_sum_kernel<<<cdiv(W, 256), 256, 0, st>>>(part, grads, W);
+  // MAX_TAPS + 2 jobs a launch (one launch for K <= MAX_TAPS); each writes
+  // its own part of the gradient layout
+  for (size_t first = 0; first < all.size(); first += MAX_TAPS + 2) {
+    Jobs jobs;
+    jobs.n = 0;
+    int tiles = 0;
+    for (size_t i = first; i < std::min(all.size(), first + MAX_TAPS + 2); ++i) {
+      Job& j = jobs.job[jobs.n++];
+      j = all[i];
+      j.tile0 = tiles;
+      tiles += cdiv(j.a_cols, 128) * j.tiles_n;
+    }
+    bwd_wgrad_kernel<<<dim3(tiles, NSLICE), NT, SMEM_W, st>>>(jobs, part, W, N, L > 0 ? L : 1, rows);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  bwd_slice_sum_kernel<<<cdiv(W, 256), 256, 0, st>>>(part, grads, W, NSLICE);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@ class Model(nn.Module):
         super().__init__()
         if model_type == "raw-ctcnet":
             raise NotImplementedError(
-                "raw-ctcnet is not ported yet (ROADMAP A9: RawCTCNet, "
+                "raw-ctcnet is not ported yet (ROADMAP A8: RawCTCNet, "
                 "BatchNorm1d and the CTC-only step)")
         if model_type != "wavenet-ctc":
             raise ValueError(f"unknown model_type {model_type!r}")

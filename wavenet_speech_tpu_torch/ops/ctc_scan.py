@@ -22,8 +22,12 @@ is never padded, so a segment's ``tl_true`` is its length.
 
 What bounds them on an H100: at the bench shape (T=1126, B=8, J=859) B1
 moves 62 MB and B2 93 MB (0.02-0.03 ms at 3.35 TB/s), but each runs T
-dependent frames, one block barrier a frame, on B blocks (B SMs). See the
-source note in ``csrc/ctc.cu``.
+dependent frames, two dependent logaddexps a state a frame. A sequence
+runs on a thread-block cluster of C blocks; each thread of a block owns a
+run of R lattice states in registers and stages its run of the next
+frames in a ring of D frames in shared memory. ``ctc_geometry`` chooses
+R, C, the block's threads and D from J, B and the card's SM count. See
+the source note in ``csrc/ctc.cu``.
 """
 from __future__ import annotations
 
@@ -38,12 +42,52 @@ from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # B1: lp, skipadd, lengths, label_lengths, alpha_in, alphas, ll, alpha_out;
-#     T, B, J, t_offset, tl_true; stream
+#     T, B, J, t_offset, tl_true, R, C, D; stream
 # B2: lp, alphas, skipadd, lengths, label_lengths, ll, cot, lpb_in, grad,
-#     lpb_out; T, B, J, t_offset, tl_true; stream
-_SIGNATURES = {"wst_ctc_alpha_f32": [_P] * 8 + [_I] * 5 + [_P],
-               "wst_ctc_beta_f32": [_P] * 10 + [_I] * 5 + [_P]}
-MAX_STATES = 8192  # J = 2S+1 the kernels take: 8 states a thread, 1024 threads
+#     lpb_out; T, B, J, t_offset, tl_true, R, C, D; stream
+_SIGNATURES = {"wst_ctc_alpha_f32": [_P] * 8 + [_I] * 8 + [_P],
+               "wst_ctc_beta_f32": [_P] * 10 + [_I] * 8 + [_P]}
+MAX_STATES = 8192  # J = 2S+1 the kernels take: blocks of at most 4096 states, 8 a thread
+# csrc/ctc.cu's launch geometry: the run lengths it is built for, the ring
+# depths and cluster sizes it takes, and the shared memory a block may use
+# on an H100
+RUNS = (1, 2, 4, 8)
+MAX_RING = 16
+CLUSTERS = (4, 2, 1)
+CLUSTER_PART = 128   # states a block at least, to split a sequence
+MAX_PART = 4096      # states a block at most (runs of 8 in 512 threads)
+RUN_THREADS = 512    # the shortest run that needs at most this many threads a block
+SMEM_LIMIT = 232448
+_XE = 32             # csrc/ctc.cu: frames a block may run ahead of the next
+
+
+def ctc_geometry(J: int, rings: int, B: int, sms: int):
+    """(R, C, threads, D) of a CTC kernel's launch for B sequences of J
+    lattice states on a card of ``sms`` SMs. C blocks a sequence (a
+    thread-block cluster): the fewest that keep a block within MAX_PART
+    states, or more (the most in CLUSTERS) where every block still gets an
+    SM of its own and at least CLUSTER_PART states. Each block takes
+    ceil(J / C) states rounded up to whole warps of runs of R states, R the
+    shortest run in RUNS that needs at most RUN_THREADS threads (else the
+    longest); threads a block: the runs' warps and the warp that carries
+    the cluster edge. D: the deepest ring (at most MAX_RING frames) whose
+    ``rings`` rows a frame (B1: the log-probs, 1; B2: and the alphas, 2)
+    fit the shared memory beside the edges and the scratch (csrc/ctc.cu
+    ``smem_bytes``)."""
+    least = next(c for c in reversed(CLUSTERS) if -(-J // c) <= MAX_PART)
+    C = next(c for c in CLUSTERS
+             if c == least or (c > least and B * c <= sms and J >= CLUSTER_PART * c))
+    part = -(-J // C)
+    R = next((r for r in RUNS if -(-part // r) <= RUN_THREADS), RUNS[-1])
+    Jc = -(-part // (32 * R)) * 32 * R
+    warps = Jc // (32 * R)
+    fixed = 16 * _XE + 4 * (4 * (warps + 1) + 2 * _XE + 32 + max(CLUSTERS))
+    D = min(MAX_RING, (SMEM_LIMIT - fixed) // (4 * rings * Jc))
+    return R, C, 32 * (warps + 1), D
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _shift_right(x, n):
@@ -168,12 +212,13 @@ def ctc_fwd(lp_ext_t, skipadd, logit_lengths, label_lengths,
     alphas = torch.empty((T, B, J), device=dev)
     ll = torch.empty((B,), device=dev)
     alpha_out = torch.empty((B, J), device=dev)
+    R, C, _, D = ctc_geometry(J, 1, B, _sms(dev))
     lib = _build.library("ctc", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.wst_ctc_alpha_f32(
             lp_ext_t.data_ptr(), skipadd.data_ptr(), lens.data_ptr(), lab.data_ptr(),
             alpha_in.data_ptr(), alphas.data_ptr(), ll.data_ptr(), alpha_out.data_ptr(),
-            T, B, J, int(t_offset), T if tl_true is None else int(tl_true),
+            T, B, J, int(t_offset), T if tl_true is None else int(tl_true), R, C, D,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "ctc_fwd")
     if segment:
@@ -209,13 +254,14 @@ def ctc_bwd(lp_ext_t, alphas, skipadd, logit_lengths, label_lengths, ll, cot,
     lens, lab = _i32(logit_lengths, dev), _i32(label_lengths, dev)
     grad = torch.empty((T, B, J), device=dev)
     lpb_out = torch.empty((B, J), device=dev)
+    R, C, _, D = ctc_geometry(J, 2, B, _sms(dev))
     lib = _build.library("ctc", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.wst_ctc_beta_f32(
             lp_ext_t.data_ptr(), alphas.data_ptr(), skipadd.data_ptr(), lens.data_ptr(),
             lab.data_ptr(), ll.data_ptr(), cot.data_ptr(), lpb_in.data_ptr(),
             grad.data_ptr(), lpb_out.data_ptr(),
-            T, B, J, int(t_offset), T if tl_true is None else int(tl_true),
+            T, B, J, int(t_offset), T if tl_true is None else int(tl_true), R, C, D,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "ctc_bwd")
     if segment:

@@ -30,10 +30,11 @@ products over the split v = hi + lo (hi = bf16(v), lo = bf16(v - hi)),
 summed in float32; dx and the summed gradients are rounded to bf16. The
 plain versions do the same arithmetic in float32 PyTorch. The wrapper
 passes the weights in the layouts the kernels read (K-major copies where
-needed) and zero-pads channel widths that are not multiples of 8. A bf16
-CUDA tensor goes to the bf16 kernels or raises: it is never upcast to the
-float32 kernels. ``launches`` counts float32 launches and ``launches_bf16``
-bf16 ones.
+needed) and zero-pads channel widths that are not multiples of 4 (float32)
+or 8 (bf16), cutting the outputs and gradients back; the kernels take any
+number of taps. A bf16 CUDA tensor goes to the bf16 kernels or raises: it
+is never upcast to the float32 kernels. ``launches`` counts float32
+launches and ``launches_bf16`` bf16 ones.
 
 Where the time goes on an H100, at the bench shape (B=8, L=4505,
 C_in=C=256, K=2): the forward is 33 GFLOP against ~115 MB moved (float32)
@@ -69,8 +70,12 @@ _BWD_SIGNATURES = {"wst_fused_gated_block_bwd_f32": [_P] * 13 + [_I] * 6 + [_P],
 _BWD_BF16_SIGNATURES = {"wst_fused_gated_block_bwd_bf16": [_P] * 14 + [_I] * 6 + [_P],
                         "wst_fused_block_bwd_bf16_slices": []}
 _DTYPES = (torch.float32, torch.bfloat16)  # the storage types the kernels take
-BF16_ALIGN = 8  # channel widths the bf16 kernels take (16-byte rows); others are zero-padded
-MAX_TAPS = 8  # gate kernel widths the backward kernel takes
+# channel widths the kernels take (16-byte rows); others are zero-padded
+F32_ALIGN, BF16_ALIGN = 4, 8
+# taps the backward kernels take in one pass of a reduction; more taps take
+# more passes (csrc/fused_block_bwd*.cu), and the bf16 kernel then needs dx's
+# float32 partial sums in its scratch (``_launch_bwd_bf16``)
+MAX_TAPS = 8
 
 
 def fused_gated_block_ref(x, gate_w, gate_b, out_w, out_b, res_w, res_b,
@@ -133,22 +138,32 @@ def _check_args(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation,
         if name in args and tuple(args[name].shape) != shape:
             raise ValueError(f"fused_gated_block: {name} has shape "
                              f"{tuple(args[name].shape)}, expected {shape}")
-    if C_in % 4 or C % 4:
-        raise ValueError("fused_gated_block: the CUDA kernel needs C_in and C "
-                         f"divisible by 4, got C_in={C_in}, C={C}")
     if dilation < 1:
         raise ValueError(f"fused_gated_block: dilation must be >= 1, got {dilation}")
-    if cotangents and K > MAX_TAPS:
-        raise ValueError(f"fused_gated_block: the backward kernel takes at most "
-                         f"{MAX_TAPS} taps, got {K}")
     return B, L, C_in, C, K
 
 
 def _launch_fwd(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
-    B, L, C_in, C, K = _check_args(x, gate_w, gate_b, out_w, out_b, res_w,
+    _, _, C_in, C, _ = _check_args(x, gate_w, gate_b, out_w, out_b, res_w,
                                    res_b, dilation)
     if x.dtype == torch.bfloat16:
         return _launch_fwd_bf16(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation)
+    (x, gate_w, gate_b, out_w, res_w, out_b, res_b), _, Cp = _pad_widths(
+        F32_ALIGN, C_in, C, x, gate_w, gate_b, out_w, res_w, out_b=out_b, res_b=res_b)
+    return _unpad_outputs(_fwd_f32(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation),
+                          C, Cp)
+
+
+def _unpad_outputs(outputs, C: int, Cp: int):
+    """(resid, skip) at a padded width Cp cut back to C, contiguous: the
+    next block takes resid as its input."""
+    return outputs if Cp == C else tuple(t[..., :C].contiguous() for t in outputs)
+
+
+def _fwd_f32(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
+    """B4 (csrc/fused_block.cu) at widths it takes (multiples of F32_ALIGN)."""
+    B, L, C_in = x.shape
+    K, C = gate_w.shape[0], res_w.shape[1]
     resid = torch.empty((B, L, C), device=x.device, dtype=x.dtype)
     skip = torch.empty_like(resid)
     lib = _build.library("fused_block", _SIGNATURES)
@@ -164,7 +179,7 @@ def _launch_fwd(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
     return resid, skip
 
 
-def _round_up(n: int, m: int = BF16_ALIGN) -> int:
+def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
@@ -190,13 +205,13 @@ def _pad_rows(t, n: int, dim: int):
     return F.pad(t, pad)
 
 
-def _pad_bf16(C_in, C, x, gate_w, gate_b, out_w, res_w, cotangents=(), out_b=None,
-              res_b=None):
-    """The bf16 kernels' operands with C_in and C zero-padded to multiples
-    of BF16_ALIGN (the identity at the model's widths). Zero channels change
-    no result: their gate is 0 + 0, their act tanh(0) * sigmoid(0) = 0, and
+def _pad_widths(align, C_in, C, x, gate_w, gate_b, out_w, res_w, cotangents=(),
+                out_b=None, res_b=None):
+    """The kernels' operands with C_in and C zero-padded to multiples of
+    align (the identity at the model's widths). Zero channels change no
+    result: their gate is 0 + 0, their act tanh(0) * sigmoid(0) = 0, and
     every weight row or column that reads them is zero."""
-    Ci, Cp = _round_up(C_in), _round_up(C)
+    Ci, Cp = _round_up(C_in, align), _round_up(C, align)
     contig = lambda t: None if t is None else t.contiguous()
     return [contig(t) for t in (
         _pad_last(x, Ci), _pad_rows(_pad_halves(gate_w, C, Cp), Ci, 1),
@@ -216,8 +231,8 @@ def _launch_fwd_bf16(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: in
     """B4-bf16 (csrc/fused_block_bf16.cu) with the weights K-major."""
     B, L, C_in = x.shape
     K, C = gate_w.shape[0], res_w.shape[1]
-    (x, gate_w, gate_b, out_w, res_w, out_b, res_b), Ci, Cp = _pad_bf16(
-        C_in, C, x, gate_w, gate_b, out_w, res_w, out_b=out_b, res_b=res_b)
+    (x, gate_w, gate_b, out_w, res_w, out_b, res_b), Ci, Cp = _pad_widths(
+        BF16_ALIGN, C_in, C, x, gate_w, gate_b, out_w, res_w, out_b=out_b, res_b=res_b)
     wgT = gate_w.transpose(1, 2).contiguous()  # (K, 2C, C_in)
     woT = out_w.T.contiguous()                 # (2C, C)
     wrT = res_w.T.contiguous()                 # (C, C_in)
@@ -233,9 +248,7 @@ def _launch_fwd_bf16(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: in
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block")
     _count(fused_gated_block, "bf16")
-    if Cp != C:
-        resid, skip = resid[..., :C], skip[..., :C]
-    return resid, skip
+    return _unpad_outputs((resid, skip), C, Cp)
 
 
 def _count(wrapper, suffix: str) -> None:
@@ -333,10 +346,25 @@ def fused_gated_block_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip,
                                          dskip, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gated_block_bwd: unsupported device {x.device}")
-    B, L, C_in, C, K = _check_args(x, gate_w, gate_b, out_w, None, res_w, None,
+    return _launch_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation)
+
+
+def _launch_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
+    _, _, C_in, C, _ = _check_args(x, gate_w, gate_b, out_w, None, res_w, None,
                                    dilation, dresid=dresid, dskip=dskip)
     if x.dtype == torch.bfloat16:
         return _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation)
+    (x, gate_w, gate_b, out_w, res_w, dresid, dskip, _, _), _, Cp = _pad_widths(
+        F32_ALIGN, C_in, C, x, gate_w, gate_b, out_w, res_w, (dresid, dskip))
+    grads = _bwd_f32(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation)
+    return _unpad_grads(grads, C_in, C, Cp)
+
+
+def _bwd_f32(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
+    """B5 (csrc/fused_block_bwd.cu) at widths it takes (multiples of
+    F32_ALIGN): (dx, dWg, dbg, dWo, dbo, dWr, dbr)."""
+    B, L, C_in = x.shape
+    K, C = gate_w.shape[0], res_w.shape[1]
     lib = _build.library("fused_block_bwd", _BWD_SIGNATURES)
     dev = x.device
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)  # scratch
@@ -372,8 +400,8 @@ def _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: i
     scratch as bf16 hi and lo planes."""
     B, L, C_in = x.shape
     K, C = gate_w.shape[0], res_w.shape[1]
-    (x, gate_w, gate_b, out_w, res_w, dresid, dskip, _, _), Ci, Cp = _pad_bf16(
-        C_in, C, x, gate_w, gate_b, out_w, res_w, (dresid, dskip))
+    (x, gate_w, gate_b, out_w, res_w, dresid, dskip, _, _), Ci, Cp = _pad_widths(
+        BF16_ALIGN, C_in, C, x, gate_w, gate_b, out_w, res_w, (dresid, dskip))
     x, gate_b, dresid, dskip = (_aligned(t) for t in (x, gate_b, dresid, dskip))
     wgT = gate_w.transpose(1, 2).contiguous()
     lib = _build.library("fused_block_bwd_bf16", _BWD_BF16_SIGNATURES)
@@ -384,8 +412,11 @@ def _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: i
     dgs = torch.empty((2, B, L, 2 * Cp), device=dev, dtype=bf)  # dg's hi, lo planes
     acts = torch.empty((2, B, L, Cp), device=dev, dtype=bf)     # act's hi, lo planes
     da = torch.empty((B, L, Cp), device=dev, dtype=torch.float32)
-    part = torch.empty((lib.wst_fused_block_bwd_bf16_slices(), n_grads), device=dev,
-                       dtype=torch.float32)
+    # the weight gradients' slice sums; with more than MAX_TAPS taps, first
+    # dx's float32 partial sums, one plane a group of MAX_TAPS taps
+    dx_planes = -(-K // MAX_TAPS) if K > MAX_TAPS else 0
+    part = torch.empty(max(lib.wst_fused_block_bwd_bf16_slices() * n_grads,
+                           dx_planes * B * L * Ci), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         rc = lib.wst_fused_gated_block_bwd_bf16(
             x.data_ptr(), dresid.data_ptr(), dskip.data_ptr(), wgT.data_ptr(),
@@ -400,7 +431,7 @@ def _launch_bwd_bf16(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: i
 
 def _unpad_grads(grads, C_in: int, C: int, Cp: int):
     """The backward's outputs (dx, dWg, dbg, dWo, dbo, dWr, dbr) at widths
-    padded by ``_pad_bf16`` cut back to C_in and C."""
+    padded by ``_pad_widths`` cut back to C_in and C."""
     dx, dwg, dbg, dwo, dbo, dwr, dbr = grads
     if (dx.shape[-1], Cp) == (C_in, C):
         return grads
