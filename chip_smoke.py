@@ -5,8 +5,9 @@ one NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
-(and prints ptxas's registers and spills of the bf16 tensor-core kernels
-and the CTC kernels), then, at the full width of the bench model (WaveNet
+(and prints ptxas's registers, spills, injected waits and serialized
+wgmma of the tensor-core kernels, float32 and bf16, and of the CTC
+kernels), then, at the full width of the bench model (WaveNet
 30 blocks + classifier 18 blocks, 256 channels, 5 labels; random weights
 from a seed; B=8 one-hot reads of L=4505):
 
@@ -30,7 +31,8 @@ from a seed; B=8 one-hot reads of L=4505):
      At the port's init, and again with res_w scaled as in 4, it holds
      the kernel step's gradients to at most SENS_FACTOR times the
      cuDNN-composite step's distance from the plain step's; holds the
-     fused block's backward kernel (B5) at every dilation and the CTC
+     fused block's backward kernel (B5) at every dilation (two calls on
+     the same inputs must give the same bits) and the CTC
      alpha and beta kernels (B1, B2) against their plain versions on the
      inputs the real backward feeds them (and the CTC against
      F.ctc_loss); takes 3 steps counting launches (B4 30, B5 30, B1 1,
@@ -141,6 +143,8 @@ CLASSIFIER_DILS = [1, 2, 4, 8, 16, 32] * 3
 BEAM_WIDTH = 7
 # published H100 SXM peaks (NVIDIA data sheet) at a 700 W power limit
 PEAK_F32_FLOPS = 67e12               # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12             # TF32 on the tensor cores, dense
+SPLIT_PRODUCTS = 3                   # TF32 products a float32-accurate split product takes
 PEAK_BYTES = 3.35e12                 # HBM3
 # B4 tolerance: |kernel - plain| <= B4_RTOL * |plain| + B4_ATOL * max|plain|.
 # Both sum the same f32 products (512 and 256 terms a block) in another
@@ -196,10 +200,11 @@ CUT_DEPTHS = ((([1, 2, 4], [1, 2]), True),
               (([1, 2, 4, 8, 16, 32, 64, 128, 256, 512], [1, 2, 4, 8, 16, 32]), False))
 BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
-TENSOR_CORE_SOURCES = ("fused_block_bf16", "fused_block_bwd_bf16")  # wgmma kernels
+TENSOR_CORE_SOURCES = ("fused_block", "fused_block_bwd", "fused_block_bf16",
+                       "fused_block_bwd_bf16")  # wgmma kernels
 PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc",)  # registers and spills printed
 # the causal block at widths the kernels do not take as they are (C_in=6,
-# C=10: zero-padded to 8, 12 in float32 and 8, 16 in bf16) and more taps
+# C=10: zero-padded to 32, 32 in float32 and 8, 16 in bf16) and more taps
 # than one pass of the backward's reduction takes (K=9): B, L, C_in, C, K, d
 PAD_BLOCK = (2, 300, 6, 10, 9, 7)
 
@@ -264,7 +269,7 @@ def demangled_kernel(mangled):
     end = mangled.find("_kernel") + len("_kernel")
     for n in range(len("_kernel") + 1, end):
         if mangled[:end - n].endswith(str(n)):
-            arg = re.match(r"ILi(\d+)E", mangled[end:])
+            arg = re.match(r"IL[ib](\d+)E", mangled[end:])
             return mangled[end - n:end] + (f"<{arg[1]}>" if arg else "")
     return mangled
 
@@ -281,15 +286,36 @@ def log_ptxas_report(procs):
                 kernel = demangled_kernel(entry[1])
             elif "is injected" in line:  # C7517/C7519: a wait ptxas put between wgmmas
                 injected += 1
+            elif "serialized" in line:  # C7511: ptxas could not pipeline the wgmmas
+                log(f"ptxas {name}.cu: {line.split(':', 1)[-1].strip()}")
             elif "Used" in line or "spill" in line:
                 log(f"ptxas {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
         log(f"ptxas {name}.cu: {injected} warpgroup waits injected by the compiler")
 
 
-def bound_of(ops, nbytes):
+def f32_ops_ms(ops):
+    """(CUDA-core ms, split ms) of float32 products: at the float32 rate
+    outside the tensor cores, and as float32-accurate split products on the
+    tensor cores (SPLIT_PRODUCTS TF32 products each)."""
+    return ops / PEAK_F32_FLOPS * 1e3, SPLIT_PRODUCTS * ops / PEAK_TF32_FLOPS * 1e3
+
+
+def bound_of(ops, nbytes, split=False):
     """(bound_ms, bound_by): the larger of the float32 operations over the
-    peak rate and the bytes over the memory rate."""
-    return max((ops / PEAK_F32_FLOPS * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+    peak rate and the bytes over the memory rate. split: the operations are
+    matrix products, which the card can also take as split products on the
+    tensor cores; the faster of the two rates counts."""
+    ops_ms = min(f32_ops_ms(ops)) if split else ops / PEAK_F32_FLOPS * 1e3
+    return max((ops_ms, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+
+
+def bound_shares(kernel_ms, ops):
+    """The text of a float32 kernel's time against both operation bounds."""
+    core, split = f32_ops_ms(ops)
+    return (f"share of the CUDA-core bound {core / kernel_ms:.1%} ({core:.4f} ms at "
+            f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), of the split tensor-core bound "
+            f"{split / kernel_ms:.1%} ({split:.4f} ms: {SPLIT_PRODUCTS} x ops at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32)")
 
 
 def onehot_reads(rng, n, length, levels):
@@ -376,9 +402,12 @@ def phase_fused_block(model, x_entry):
             ms=cuda_ms(lambda: fused_gated_block(x, *a, d), 5),
             plain_ms=cuda_ms(lambda: fused_gated_block_ref(x, *a, d), 5),
             library_ms=cuda_ms(lambda: cudnn_block(x, *a, d), 5)))
+        last = (x, a, d)
         x = want[0]
+    x, a, d = last
+    log_kernel_times(f"B4 at d={d}", lambda: fused_gated_block(x, *a, d))
     flops, nbytes = b4_work(x_entry, model.model_base.stack.blocks[0].gate_w)
-    bound_ms, bound_by = bound_of(flops, nbytes)
+    bound_ms, bound_by = bound_of(flops, nbytes, split=True)
     for r in rows:
         log(f"  B4 d={r['d']:3d}  max|plain|={r['scale']:.3e} max_abs_err={r['err']:.3e} "
             f"(library's {r['lib_err']:.3e})  kernel_ms={r['ms']:.4f} "
@@ -391,9 +420,9 @@ def phase_fused_block(model, x_entry):
         f"x max|plain|; "
         f"max_abs_err={summary['err']:.3e}; kernel_ms={summary['ms']:.4f} "
         f"plain_ms={summary['plain_ms']:.4f} library_ms={summary['library_ms']:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP at "
-        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, {nbytes / 1e6:.1f} MB at "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s); mean over the 30 blocks")
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s); {bound_shares(summary['ms'], flops)}; "
+        f"mean over the 30 blocks")
     return summary
 
 
@@ -635,14 +664,19 @@ def b5_work(x, gate_w):
 
 def phase_fused_block_bwd(blocks_io):
     """B5 against its plain version at each of the 30 dilations, on the
-    inputs and cotangents of the real backward."""
+    inputs and cotangents of the real backward; a second call on the same
+    inputs must give the same bits in all seven outputs."""
     rows = []
     for x, w, d, dr, ds in blocks_io:
         got = fused_gated_block_bwd(x, *w, dr, ds, d)
+        again = fused_gated_block_bwd(x, *w, dr, ds, d)
         want = fused_gated_block_bwd_ref(x, *w, dr, ds, d)
         lib_fn = cudnn_block_bwd(x, w, d, dr, ds)
         lib = lib_fn()
         torch.cuda.synchronize()
+        for name, a, b in zip(B5_OUTPUTS, got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"B5 d={d} {name}: two calls on the same inputs differ")
         errs, scales = hold_b5(d, got, want)
         lib_errs = [float((c - p).abs().max()) for c, p in zip(lib, want)]
         rows.append(dict(
@@ -651,7 +685,7 @@ def phase_fused_block_bwd(blocks_io):
             plain_ms=cuda_ms(lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d), 3),
             library_ms=cuda_ms(lib_fn, 3)))
     flops, nbytes = b5_work(blocks_io[0][0], blocks_io[0][1][0])
-    bound_ms, bound_by = bound_of(flops, nbytes)
+    bound_ms, bound_by = bound_of(flops, nbytes, split=True)
     for r in rows:
         log(f"  B5 d={r['d']:3d} max_abs_err/max|plain| "
             + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, e, s in zip(B5_OUTPUTS, r["errs"],
@@ -664,14 +698,35 @@ def phase_fused_block_bwd(blocks_io):
     summary = dict(err=max(worst), ms=mean("ms"), plain_ms=mean("plain_ms"),
                    library_ms=mean("library_ms"), bound_ms=bound_ms, bound_by=bound_by)
     log(f"B5 fused_gated_block_bwd: {len(rows)} dilations within rtol {B4_RTOL}, atol {B4_ATOL} "
-        f"(dx) / {B5_WGRAD_ATOL} (weights, biases) x max|plain|; max_abs_err "
+        f"(dx) / {B5_WGRAD_ATOL} (weights, biases) x max|plain|, two calls bit-equal; max_abs_err "
         + " ".join(f"{k}={e:.3e}" for k, e in zip(B5_OUTPUTS, worst))
         + "; cuDNN-composite autograd's " + " ".join(f"{k}={e:.3e}" for k, e in
                                                       zip(B5_OUTPUTS, worst_lib))
         + f"; kernel_ms={summary['ms']:.4f} plain_ms={summary['plain_ms']:.4f} "
         f"library_ms={summary['library_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); mean over the 30 blocks")
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); {bound_shares(summary['ms'], flops)}; "
+        f"mean over the 30 blocks")
     return summary
+
+
+def log_kernel_times(label, fn, calls=3):
+    """The device time of each CUDA kernel that fn() launches, by name, a
+    call (torch.profiler over `calls` calls after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_time_total > 0 and e.count >= calls]
+    total = sum(t for _, _, t in rows) / calls / 1e3
+    log(f"{label} by kernel (torch.profiler, device time a call, mean of {calls}; total "
+        f"{total:.4f} ms): " + "; ".join(
+            f"{re.sub(r'[(].*', '', k.replace('(anonymous namespace)::', '').replace('void ', ''))}"
+            f" x{n // calls} {t / calls / 1e3:.4f} ms"
+            for k, n, t in sorted(rows, key=lambda r: -r[2])))
 
 
 def one_block_a_sequence():
@@ -897,6 +952,8 @@ def run_training(dev):
     phase_grad_ratio(model, batch, "scaled res_w")
     blocks_io, logits, lp_ext, skip = capture_backward(model, batch)
     b5 = phase_fused_block_bwd(blocks_io)
+    x, w, d, dr, ds = blocks_io[-1]   # d = 512
+    log_kernel_times(f"B5 at d={d}", lambda: fused_gated_block_bwd(x, *w, dr, ds, d))
     del blocks_io
     b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
     step, tx, state, launches = phase_train_steps(model, batch)
@@ -1464,7 +1521,7 @@ def check_blocks(blocks_io, mesh):
     for key, work in (("b4", b4_work), ("b5", b5_work)):
         ops, nbytes = (sum(v) / len(blocks_io)
                        for v in zip(*(work(x, fw[0]) for x, fw, *_ in blocks_io)))
-        out[f"{key}_bound"] = bound_of(ops, nbytes)
+        out[f"{key}_bound"] = bound_of(ops, nbytes, split=True)
     x = blocks_io[0][0]
     out.update(b4_err=b4_err, b5_err=b5_err, n=len(blocks_io), B=x.shape[0],
                L=sorted({io[0].shape[1] for io in blocks_io}))

@@ -73,7 +73,7 @@ def _cpu_args():
 def test_kernel_argument_checks(case):
     """The checks the wrapper makes before a launch (run on CPU tensors
     here; the launch itself needs the card). Every case but ``divisible``
-    raises; C_in=6 is accepted and padded to the kernels' multiple of 4."""
+    raises; C_in=6 is accepted and padded to the kernels' multiple of 32."""
     a = _cpu_args()
     d = 2
     if case == "dtype":
@@ -88,7 +88,7 @@ def test_kernel_argument_checks(case):
         assert fused_block._check_args(*a, d) == (2, 61, 6, 8, 2)
         padded, Ci, Cp = fused_block._pad_widths(fused_block.F32_ALIGN, 6, 8, *a[:4],
                                                  a[5], out_b=a[4], res_b=a[6])
-        assert (Ci, Cp) == (8, 8) and padded[0].shape == (2, 61, 8)
+        assert (Ci, Cp) == (32, 32) and padded[0].shape == (2, 61, 32)
         return
     elif case == "dilation":
         d = 0
@@ -153,7 +153,7 @@ def test_padded_forward_matches_unpadded(monkeypatch, align):
     a = [torch.from_numpy(v) for v in _args(5, C_in=6, C=10, K=9)]
     got = fused_block._launch_fwd(*a, 3)
     want = fused_gated_block_ref(*a, 3)
-    assert seen == [(8, 12) if align == "F32_ALIGN" else (8, 16)]
+    assert seen == [(32, 32) if align == "F32_ALIGN" else (8, 16)]
     for g, w in zip(got, want):
         assert g.shape == w.shape == (2, 61, 10)
         assert g.is_contiguous()  # the next block takes resid as its input

@@ -42,13 +42,19 @@ def cuda():
 
 # widths that are not multiples of 4 (zero-padded) and K > 8 taps
 PADDED_SHAPES = [(2, 100, 6, 10, 3, 4), (2, 100, 6, 10, 9, 4)]
+# the bench model's widths, L ragged against the 128-row tile (4505) and not
+# (4608), the shortest and longest dilation
+FULL_WIDTH = [(2, L, 256, 256, 2, d) for L in (4505, 4608) for d in (1, 512)]
+# float32 forward widths past 256 (one warpgroup a block) and past 512 (act
+# through device memory, two launches)
+WIDE = [(2, 150, 40, 300, 2, 3), (2, 150, 40, 600, 3, 5)]
 
 
 @pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),
                                             (1, 37, 8, 12, 3, 5),
                                             (2, 300, 64, 64, 2, 128),
                                             (3, 129, 260, 132, 2, 7),
-                                            *PADDED_SHAPES])
+                                            *PADDED_SHAPES, *FULL_WIDTH, *WIDE])
 def test_fused_block_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     g = torch.Generator().manual_seed(d)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
@@ -94,7 +100,7 @@ def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
                                             (1, 37, 8, 12, 3, 5),
                                             (2, 700, 64, 64, 2, 512),
                                             (3, 129, 260, 132, 2, 7),
-                                            *PADDED_SHAPES])
+                                            *PADDED_SHAPES, *FULL_WIDTH, *WIDE])
 def test_fused_block_bwd_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
     g = torch.Generator().manual_seed(d + 1)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
@@ -113,6 +119,21 @@ def test_fused_block_bwd_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * max(1.0, float(b.abs().max())),
                                    msg=lambda m: f"{name}: {m}")
+
+
+def test_fused_block_bwd_kernel_is_bit_equal_across_calls(cuda):
+    """B5 at the bench shape: its fixed frame slices and in-order slice sum
+    give the same bits on every call, in all seven outputs."""
+    g = torch.Generator().manual_seed(11)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
+    B, L, C, K = 8, 4505, 256, 2
+    args = (u(B, L, C), u(K, C, 2 * C) * 0.1, u(2 * C) * 0.1, u(C, 2 * C) * 0.1,
+            u(C, C) * 0.1, u(B, L, C), u(B, L, C))
+    first = fused_gated_block_bwd(*args, 64)
+    for _ in range(2):
+        again = fused_gated_block_bwd(*args, 64)
+        for name, a, b in zip(("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr"), first, again):
+            assert torch.equal(a, b), f"{name}: two calls differ"
 
 
 def test_fused_block_autograd_matches_plain(cuda):

@@ -17,24 +17,31 @@ gate. ``fused_gated_block_bwd`` is that backward; its plain version is
 ``fused_gated_block_bwd_ref``.
 
 Types: float32, or bfloat16 as the TPU kernels take it (residual_block.py:
-78-94, 245-300, 382-384), one type for every tensor of a call. float32 runs
-``csrc/fused_block.cu`` and ``csrc/fused_block_bwd.cu`` on the CUDA cores.
-bf16 runs ``csrc/fused_block_bf16.cu`` and ``csrc/fused_block_bwd_bf16.cu``
-on the tensor cores (wgmma, bf16 x bf16 -> float32, on shared-memory tiles
-that cp.async fills): the forward multiplies bf16 values exactly, sums in
-float32, adds the biases in float32, rounds ``act`` to bf16 before the 1x1
-product and stores the outputs rounded to bf16; the backward recomputes the
-gate from bf16 x and weights, keeps dg and the (unrounded) act float32 as
-the TPU kernel does, and takes each product with one of them as two bf16
-products over the split v = hi + lo (hi = bf16(v), lo = bf16(v - hi)),
-summed in float32; dx and the summed gradients are rounded to bf16. The
-plain versions do the same arithmetic in float32 PyTorch. The wrapper
-passes the weights in the layouts the kernels read (K-major copies where
-needed) and zero-pads channel widths that are not multiples of 4 (float32)
-or 8 (bf16), cutting the outputs and gradients back; the kernels take any
-number of taps. A bf16 CUDA tensor goes to the bf16 kernels or raises: it
-is never upcast to the float32 kernels. ``launches`` counts float32
-launches and ``launches_bf16`` bf16 ones.
+78-94, 245-300, 382-384), one type for every tensor of a call. Both types
+run on the tensor cores (wgmma). float32 runs ``csrc/fused_block.cu`` and
+``csrc/fused_block_bwd.cu``: every product is float32-accurate, taken as
+three TF32 products over the split v = hi + lo (hi = tf32(v), lo = tf32(v -
+hi), round to nearest, ties away), hi hi + hi lo + lo hi summed in float32,
+on tiles that TMA copies into a ring of mbarrier-guarded slots
+(``csrc/tma_tf32.cuh``); the call first splits the weights into hi and lo
+planes. bf16 runs ``csrc/fused_block_bf16.cu`` and
+``csrc/fused_block_bwd_bf16.cu`` (bf16 x bf16 -> float32, on shared-memory
+tiles that cp.async fills): the forward multiplies bf16 values exactly,
+sums in float32, adds the biases in float32, rounds ``act`` to bf16 before
+the 1x1 product and stores the outputs rounded to bf16; the backward
+recomputes the gate from bf16 x and weights, keeps dg and the (unrounded)
+act float32 as the TPU kernel does, and takes each product with one of them
+as two bf16 products over the split v = hi + lo (hi = bf16(v), lo = bf16(v -
+hi)), summed in float32; dx and the summed gradients are rounded to bf16.
+The plain versions do the same arithmetic in float32 PyTorch. The wrapper
+passes the weights in the layouts the kernels read and zero-pads channel
+widths that are not multiples of 32 (float32: one TMA box) or 8 (bf16),
+cutting the outputs and gradients back; the kernels take any number of
+taps. The float32 forward keeps ``act`` for its rows in shared memory up
+to C = 512 (after padding); wider, it writes act to scratch in device
+memory and reads it back in a second launch. A bf16 CUDA tensor goes
+to the bf16 kernels or raises: it is never upcast to the float32 kernels.
+``launches`` counts float32 launches and ``launches_bf16`` bf16 ones.
 
 Where the time goes on an H100, at the bench shape (B=8, L=4505,
 C_in=C=256, K=2): the forward is 33 GFLOP against ~115 MB moved (float32)
@@ -57,21 +64,24 @@ from wavenet_speech_tpu_torch.ops.activations import gated_activation
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # csrc/fused_block.cu: x, gate_w, gate_b, out_w, out_b, res_w, res_b, resid,
-# skip; csrc/fused_block_bf16.cu: x, gate_w^T, gate_b, out_w^T, out_b,
-# res_w^T, res_b, resid, skip; then B, L, C_in, C, K, dilation; stream
-_SIGNATURES = {"wst_fused_gated_block_f32": [_P] * 9 + [_I] * 6 + [_P]}
+# skip, planes, act (or None); csrc/fused_block_bf16.cu: x, gate_w^T, gate_b,
+# out_w^T, out_b, res_w^T, res_b, resid, skip; then B, L, C_in, C, K,
+# dilation; stream
+_SIGNATURES = {"wst_fused_gated_block_f32": [_P] * 11 + [_I] * 6 + [_P],
+               "wst_fused_block_max_channels": []}
 _BF16_SIGNATURES = {"wst_fused_gated_block_bf16": [_P] * 9 + [_I] * 6 + [_P]}
-# csrc/fused_block_bwd.cu: x, dresid, dskip, gate_w, gate_b, out_w^T,
-# gate_w^T, res_w^T, dx, grads, dg, act, part; csrc/fused_block_bwd_bf16.cu:
-# x, dresid, dskip, gate_w^T, gate_b, out_w, gate_w, res_w, dx, grads, dg's
-# and act's hi/lo planes, da, part; then B, L, C_in, C, K, dilation; stream
-_BWD_SIGNATURES = {"wst_fused_gated_block_bwd_f32": [_P] * 13 + [_I] * 6 + [_P],
+# csrc/fused_block_bwd.cu: x, dresid, dskip, gate_w, gate_b, out_w, res_w,
+# dx, grads, planes, da, dg, act, part; csrc/fused_block_bwd_bf16.cu: x,
+# dresid, dskip, gate_w^T, gate_b, out_w, gate_w, res_w, dx, grads, dg's and
+# act's hi/lo planes, da, part; then B, L, C_in, C, K, dilation; stream
+_BWD_SIGNATURES = {"wst_fused_gated_block_bwd_f32": [_P] * 14 + [_I] * 6 + [_P],
                    "wst_fused_block_bwd_slices": []}
 _BWD_BF16_SIGNATURES = {"wst_fused_gated_block_bwd_bf16": [_P] * 14 + [_I] * 6 + [_P],
                         "wst_fused_block_bwd_bf16_slices": []}
 _DTYPES = (torch.float32, torch.bfloat16)  # the storage types the kernels take
-# channel widths the kernels take (16-byte rows); others are zero-padded
-F32_ALIGN, BF16_ALIGN = 4, 8
+# channel widths the kernels take (float32: one 32-column TMA box; bf16:
+# 16-byte rows); others are zero-padded
+F32_ALIGN, BF16_ALIGN = 32, 8
 # taps the backward kernels take in one pass of a reduction; more taps take
 # more passes (csrc/fused_block_bwd*.cu), and the bf16 kernel then needs dx's
 # float32 partial sums in its scratch (``_launch_bwd_bf16``)
@@ -161,18 +171,23 @@ def _unpad_outputs(outputs, C: int, Cp: int):
 
 
 def _fwd_f32(x, gate_w, gate_b, out_w, out_b, res_w, res_b, dilation: int):
-    """B4 (csrc/fused_block.cu) at widths it takes (multiples of F32_ALIGN)."""
+    """B4 (csrc/fused_block.cu) at widths it takes (multiples of F32_ALIGN):
+    the weights as stored, split in the call into hi and lo planes in
+    ``planes``; above the kernel's widest act in shared memory, act goes
+    through scratch."""
     B, L, C_in = x.shape
     K, C = gate_w.shape[0], res_w.shape[1]
-    resid = torch.empty((B, L, C), device=x.device, dtype=x.dtype)
-    skip = torch.empty_like(resid)
     lib = _build.library("fused_block", _SIGNATURES)
+    empty = lambda *s: torch.empty(s, device=x.device, dtype=torch.float32)
+    resid, skip = empty(B, L, C), empty(B, L, C)
+    planes = empty(2 * (K * 2 * C * C_in + 2 * C * C + C * C_in))
+    act = empty(B, L, C) if C > lib.wst_fused_block_max_channels() else None
     with torch.cuda.device(x.device):
         rc = lib.wst_fused_gated_block_f32(
             x.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
             out_w.data_ptr(), out_b.data_ptr(), res_w.data_ptr(),
-            res_b.data_ptr(), resid.data_ptr(), skip.data_ptr(),
-            B, L, C_in, C, K, dilation,
+            res_b.data_ptr(), resid.data_ptr(), skip.data_ptr(), planes.data_ptr(),
+            None if act is None else act.data_ptr(), B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block")
     _count(fused_gated_block, "f32")
@@ -362,7 +377,8 @@ def _launch_bwd(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
 
 def _bwd_f32(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
     """B5 (csrc/fused_block_bwd.cu) at widths it takes (multiples of
-    F32_ALIGN): (dx, dWg, dbg, dWo, dbo, dWr, dbr)."""
+    F32_ALIGN): (dx, dWg, dbg, dWo, dbo, dWr, dbr). The weights go as
+    stored; the call splits them into hi and lo planes in scratch."""
     B, L, C_in = x.shape
     K, C = gate_w.shape[0], res_w.shape[1]
     lib = _build.library("fused_block_bwd", _BWD_SIGNATURES)
@@ -370,17 +386,15 @@ def _bwd_f32(x, gate_w, gate_b, out_w, res_w, dresid, dskip, dilation: int):
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)  # scratch
     grads = empty(K * C_in * 2 * C + 2 * C + C * 2 * C + 2 * C + C_in * C + C)
     dx = empty(B, L, C_in)
-    dg, act = empty(B, L, 2 * C), empty(B, L, C)
+    planes = empty(2 * (2 * K * 2 * C * C_in + C * 2 * C + C_in * C))
+    da, dg, act = empty(B, L, C), empty(B, L, 2 * C), empty(B, L, C)
     part = empty(lib.wst_fused_block_bwd_slices(), grads.numel())
-    woT = out_w.T.contiguous()
-    wgT = gate_w.transpose(1, 2).contiguous()
-    wrT = res_w.T.contiguous()
     with torch.cuda.device(dev):
         rc = lib.wst_fused_gated_block_bwd_f32(
             x.data_ptr(), dresid.data_ptr(), dskip.data_ptr(), gate_w.data_ptr(),
-            gate_b.data_ptr(), woT.data_ptr(), wgT.data_ptr(), wrT.data_ptr(),
-            dx.data_ptr(), grads.data_ptr(), dg.data_ptr(), act.data_ptr(),
-            part.data_ptr(), B, L, C_in, C, K, dilation,
+            gate_b.data_ptr(), out_w.data_ptr(), res_w.data_ptr(), dx.data_ptr(),
+            grads.data_ptr(), planes.data_ptr(), da.data_ptr(), dg.data_ptr(),
+            act.data_ptr(), part.data_ptr(), B, L, C_in, C, K, dilation,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "fused_gated_block_bwd")
     _count(fused_gated_block_bwd, "f32")
