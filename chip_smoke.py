@@ -6,15 +6,17 @@ one NVIDIA GPU. Run from the repository root:
 
 It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
 (and prints ptxas's registers, spills, injected waits and serialized
-wgmma of the tensor-core kernels, float32 and bf16, and of the CTC
-kernels), then, at the full width of the bench model (WaveNet
+wgmma of the tensor-core kernels, float32 and bf16, and of the CTC and
+beam kernels), then, at the full width of the bench model (WaveNet
 30 blocks + classifier 18 blocks, 256 channels, 5 labels; random weights
 from a seed; B=8 one-hot reads of L=4505):
 
   1. holds the fused gated block kernel against its plain version at every
      one of the 30 dilations, on the activations the forward feeds it;
   2. holds the prefix beam kernel against its plain version on the
-     log-softmax of the real forward's logits (W=7, S=4608, lengths 1126);
+     log-softmax of the real forward's logits (W=7, S=4608, lengths 1126),
+     prints its time a frame at T/4, T/2 and T, and checks that two calls
+     chained at T/2 through the beam state give the bits of one call;
   3. at the port's own init, holds the kernel forward's logit difference
      from the plain forward to at most SENS_FACTOR times that of the same
      forward built on cuDNN (the untrained full-width forward amplifies any
@@ -202,7 +204,7 @@ BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
 TENSOR_CORE_SOURCES = ("fused_block", "fused_block_bwd", "fused_block_bf16",
                        "fused_block_bwd_bf16")  # wgmma kernels
-PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc",)  # registers and spills printed
+PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc", "ctc_beam")  # registers and spills printed
 # the causal block at widths the kernels do not take as they are (C_in=6,
 # C=10: zero-padded to 32, 32 in float32 and 8, 16 in bf16) and more taps
 # than one pass of the backward's reduction takes (K=9): B, L, C_in, C, K, d
@@ -426,10 +428,56 @@ def phase_fused_block(model, x_entry):
     return summary
 
 
+# B6's time a frame with the row-based kernel the prefix tree replaced, at
+# the same shape (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+B6_ROWS_US_PER_FRAME = (7.536, 8.164, 9.309)
+
+
+def beam_us_per_frame(lp, lengths, S):
+    """B6's time a frame on the first T/4, T/2 and T frames of lp, with the
+    best beam's length at the end of each: whether a frame's cost grows
+    with the decoded length. The sequences run side by side, so a frame's
+    time is the call's over its longest sequence's frames."""
+    kw = dict(beam_width=BEAM_WIDTH, max_label_len=S)
+    T, parts = lp.shape[1], []
+    for n in (T // 4, T // 2, T):
+        part, lens = lp[:, :n].contiguous(), lengths.clamp(max=n)
+        ms = cuda_ms(lambda: beam_search_kernel(part, lens, **kw), 3)
+        frames = int(lens.max())
+        best = int(beam_finalize(beam_search_kernel(part, lens, **kw))[1][:, 0].max())
+        parts.append(f"{frames} frames {ms * 1e3 / frames:.3f} us (best length {best})")
+    log(f"B6 us a frame at T/4, T/2, T: {'; '.join(parts)} (the row-based kernel it "
+        f"replaced: {', '.join(map(str, B6_ROWS_US_PER_FRAME))} us, PERF.md)")
+    return ms * 1e3 / frames
+
+
+def beam_chained(lp, lengths, S, one):
+    """Two calls, frames [0, T/2) and then [T/2, T) from the state the first
+    returned, must give the bits of one call (``one``). Then the end's cost
+    alone: a call given the final state and no live frame builds its trie
+    and writes the rows back."""
+    kw = dict(beam_width=BEAM_WIDTH, max_label_len=S)
+    T = lp.shape[1]
+    t1 = T // 2
+    mid = beam_search_kernel(lp[:, :t1], lengths, **kw)
+    two = beam_search_kernel(lp[:, t1:], lengths, state=mid, t0=t1, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(two, one)):
+        raise AssertionError("beam: two chained calls differ from one call")
+    end_ms = cuda_ms(lambda: beam_search_kernel(lp[:, :1], lengths, state=one, t0=T, **kw), 5)
+    empty_ms = cuda_ms(lambda: beam_search_kernel(lp[:, :1], lengths, **kw), 5)
+    log(f"B6 chained: frames [0, {t1}) then [{t1}, {T}) from the returned state equal one "
+        f"call bit for bit; a call with the final state and no live frame (trie + rows "
+        f"written back) {end_ms:.4f} ms, one frame from the empty beam {empty_ms:.4f} ms "
+        f"(back-to-back calls: the wrapper's host work, and with a state its read of the "
+        f"lengths, included)")
+    return end_ms
+
+
 def phase_beam(lp, lengths, S):
     """B6 against its plain version on the real forward's log-probs."""
     kw = dict(beam_width=BEAM_WIDTH, max_label_len=S)
-    got = beam_finalize(beam_search_kernel(lp, lengths, **kw))
+    state = beam_search_kernel(lp, lengths, **kw)
+    got = beam_finalize(state)
     plain_ms, want = host_ms(lambda: beam_finalize(beam_search_ref(lp, lengths, **kw)))
     live, err = compare_beams(got, want, BEAM_WIDTH)
     ms = cuda_ms(lambda: beam_search_kernel(lp, lengths, **kw), 5)
@@ -439,12 +487,14 @@ def phase_beam(lp, lengths, S):
     ops = frames * N * (4 + math.ceil(math.log2(N)))  # logaddexp + a selection
     nbytes = 4 * (Bx * T * C + Bx + 2 * Bx * BEAM_WIDTH * S + 3 * Bx * BEAM_WIDTH)
     bound_ms, bound_by = bound_of(ops, nbytes)
+    us = beam_us_per_frame(lp, lengths, S)
+    end_ms = beam_chained(lp, lengths, S, state)
     log(f"B6 ctc_beam: {live} live beam rows equal (prefixes, lengths, times), "
         f"max score error {err:.3e} (tolerance {BEAM_SCORE_ATOL}); "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} "
         f"({bound_by}); best length {int(want[1][0, 0])}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, us_per_frame=us, end_ms=end_ms)
 
 
 def plain_versions():
@@ -1929,7 +1979,7 @@ def main() -> int:
              replaces="wavenet_speech_tpu/ops/pallas/attic/beam.py:62",
              launches=launches["ctc_beam"], max_abs_err=b6["err"],
              ms=b6["ms"], plain_ms=b6["plain_ms"], bound_ms=b6["bound_ms"],
-             bound_by=b6["bound_by"], library_ms=None),
+             bound_by=b6["bound_by"], library_ms=None, us_per_frame=b6["us_per_frame"]),
         dict(name="fused_gated_block_bwd", route="cuda",
              source="wavenet_speech_tpu_torch/csrc/fused_block_bwd.cu",
              replaces="wavenet_speech_tpu/ops/pallas/residual_block.py:201",

@@ -1,7 +1,9 @@
 """The port's plain beam search against the JAX XLA beam
 (``ctc_beam_search_jax``) and the Pallas beam kernel in interpret mode, at
-the cases of tests/test_pallas_beam.py. Live beams must hold equal prefixes
-and lengths (and times, where asked), with scores within 1e-3 absolute."""
+the cases of tests/test_pallas_beam.py, and its beam state in and out
+against JAX's ``beam_scan`` (a state from mid-decode, frames from t0).
+Live beams must hold equal prefixes and lengths (and times, where asked),
+with scores within 1e-3 absolute."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,13 +11,15 @@ import pytest
 import torch
 
 from wavenet_speech_tpu.decoding.ctc_beam_device import beam_finalize as jfinalize
+from wavenet_speech_tpu.decoding.ctc_beam_device import beam_init as jinit
+from wavenet_speech_tpu.decoding.ctc_beam_device import beam_scan as jscan
 from wavenet_speech_tpu.decoding.ctc_beam_device import ctc_beam_search_jax
 from wavenet_speech_tpu.decoding import greedy as jgreedy
 from wavenet_speech_tpu.ops.pallas.attic.beam import beam_search_pallas
 from wavenet_speech_tpu_torch.decoding import greedy as tgreedy
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
-    NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref,
-    ctc_beam_search)
+    NEG_INF, beam_finalize, beam_init, beam_scan, beam_search_kernel,
+    beam_search_ref, ctc_beam_search)
 
 
 def _lp(B, T, C, seed=0, sharp=2.0, blank_frac=0.6):
@@ -125,3 +129,81 @@ def test_greedy_matches_jax(lengths):
     np.testing.assert_array_equal(
         tgreedy.argmax_decode(torch.from_numpy(logits)).numpy(),
         np.asarray(jgreedy.argmax_decode(jnp.asarray(logits))))
+
+
+def _jax_scan(state, lp, t0, lengths, prune):
+    """JAX's beam_scan over frames with global indices t0 + arange(T),
+    vmapped over the batch; numpy in and out."""
+    ts = t0 + jnp.arange(lp.shape[1])
+    fn = lambda st, x, n: jscan(st, x, ts, n, blank=0, prune=prune)
+    out = jax.vmap(fn)(tuple(jnp.asarray(x) for x in state), jnp.asarray(lp),
+                       jnp.asarray(lengths))
+    return [np.array(x) for x in out]
+
+
+def _finalized(state):
+    return [np.asarray(o) for o in jax.vmap(jfinalize)(tuple(jnp.asarray(x) for x in state))]
+
+
+@pytest.mark.parametrize("case", ["dna", "pruned", "speech_alphabet"])
+def test_plain_beam_scan_from_a_state_matches_jax(case):
+    """From a mid-decode state (JAX's, after frames [0, t1)), the port's
+    beam_scan with t0=t1 equals JAX's beam_scan with ts = t1 + arange."""
+    shape, lengths, W, S, prune = CASES[case]
+    lp = _lp(*shape)
+    B, T, _ = lp.shape
+    t1 = T // 3
+    init = jax.vmap(lambda _: jinit(W, S))(jnp.arange(B))
+    mid = _jax_scan(init, lp[:, :t1], 0, lengths, prune)
+    assert int(mid[1].max()) > 0
+    want = _jax_scan(mid, lp[:, t1:], t1, lengths, prune)
+    got = beam_scan(tuple(torch.tensor(x) for x in mid), torch.from_numpy(lp[:, t1:]),
+                    torch.tensor(lengths), t0=t1, prune=prune)
+    _assert_live_equal([o.numpy() for o in beam_finalize(got)], _finalized(want), W,
+                       check_times=True)
+
+
+def test_plain_beam_scan_carries_frames_past_the_length():
+    """t0 at or past a sequence's length carries its state through, as
+    JAX's ts >= length does; the other sequence runs on."""
+    shape, _, W, S, _ = CASES["dna"]
+    lp = _lp(*shape)
+    mid = beam_search_ref(torch.from_numpy(lp[:, :50]), torch.tensor([100, 77]),
+                          beam_width=W, max_label_len=S)
+    lengths = torch.tensor([100, 50])
+    got = beam_search_ref(torch.from_numpy(lp[:, 50:]), lengths, beam_width=W,
+                          max_label_len=S, state=mid, t0=50)
+    want = _jax_scan([x.numpy() for x in mid], lp[:, 50:], 50, lengths.numpy(), None)
+    for g, m in zip(got, mid):
+        np.testing.assert_array_equal(g[1].numpy(), m[1].numpy())  # carried
+    _assert_live_equal([o.numpy() for o in beam_finalize(got)], _finalized(want), W,
+                       check_times=True)
+
+
+@pytest.mark.parametrize("case", ["dna", "pruned", "times"])
+def test_plain_chained_calls_equal_one_call(case):
+    """Frames [0, t1), then [t1, T) from the returned state with t0=t1: the
+    bits of one call."""
+    shape, lengths, W, S, prune = CASES[case]
+    lp = torch.from_numpy(_lp(*shape))
+    lengths = torch.tensor(lengths)
+    kw = dict(beam_width=W, max_label_len=S, prune=prune)
+    t1 = lp.shape[1] // 2
+    mid = beam_search_ref(lp[:, :t1], lengths, **kw)
+    two = beam_search_ref(lp[:, t1:], lengths, state=mid, t0=t1, **kw)
+    for x, y in zip(two, beam_search_ref(lp, lengths, **kw)):
+        assert torch.equal(x, y)
+
+
+def test_plain_call_without_a_state_is_unchanged():
+    """No state and t0=0 is the decode from beam_init, which the tests
+    above hold against JAX; a state of the wrong shape is refused."""
+    shape, lengths, W, S, _ = CASES["times"]
+    lp = torch.from_numpy(_lp(*shape))
+    lengths = torch.tensor(lengths)
+    got = beam_search_ref(lp, lengths, beam_width=W, max_label_len=S)
+    want = beam_scan(beam_init(1, W, S), lp, lengths)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="beam state"):
+        beam_search_ref(lp, lengths, beam_width=W, max_label_len=S + 1, state=want)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_beam_tree import PINNED_DUPLICATE, lp_numpy
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref)
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
@@ -70,22 +71,12 @@ def test_fused_block_kernel_matches_plain(cuda, B, L, C_in, C, K, d):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,T,C,W,S,prune", [(2, 100, 5, 7, 64, None),
-                                             (2, 60, 30, 8, 32, None),
-                                             (1, 60, 30, 8, 32, 12),
-                                             (2, 50, 5, 7, 5, None)])
-def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
-    rng = np.random.default_rng(T + C)
-    logits = (2 * rng.standard_normal((B, T, C))).astype(np.float32)
-    logits[:, rng.random(T) < 0.6, 0] += 2
-    lp = torch.log_softmax(torch.from_numpy(logits), -1).to(cuda)
-    lengths = torch.tensor([T] + [T * 3 // 4] * (B - 1), device=cuda)
-    kw = dict(beam_width=W, max_label_len=S, prune=prune)
-    p1, l1, s1, t1 = (x.cpu() for x in beam_finalize(
-        beam_search_kernel(lp, lengths, **kw)))
-    p0, l0, s0, t0 = (x.cpu() for x in beam_finalize(
-        beam_search_ref(lp, lengths, **kw)))
-    for b in range(B):
+def _assert_beams_equal(got, want, W):
+    """Raw beam states: live rows equal prefixes, lengths and times, scores
+    within 1e-3."""
+    p1, l1, s1, t1 = (x.cpu() for x in beam_finalize(got))
+    p0, l0, s0, t0 = (x.cpu() for x in beam_finalize(want))
+    for b in range(p0.shape[0]):
         for r in range(W):
             if s0[b, r] <= NEG_INF / 2:
                 break
@@ -94,6 +85,62 @@ def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
             assert abs(float(s1[b, r] - s0[b, r])) < 1e-3
             assert torch.equal(p1[b, r, :n], p0[b, r, :n])
             assert torch.equal(t1[b, r, :n], t0[b, r, :n])
+
+
+# long prefixes (T=1200, S=4608), W=32, B=1 and B=64, and W=32 over 600
+# frames, whose node pool does not fit in shared memory
+@pytest.mark.parametrize("B,T,C,W,S,prune", [(2, 100, 5, 7, 64, None),
+                                             (2, 60, 30, 8, 32, None),
+                                             (1, 60, 30, 8, 32, 12),
+                                             (2, 50, 5, 7, 5, None),
+                                             (2, 1200, 5, 7, 4608, None),
+                                             (2, 100, 5, 32, 64, None),
+                                             (1, 100, 5, 7, 64, None),
+                                             (64, 100, 5, 7, 64, None),
+                                             (1, 600, 5, 32, 64, None)])
+def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
+    rng = np.random.default_rng(T + C)
+    logits = (2 * rng.standard_normal((B, T, C))).astype(np.float32)
+    logits[:, rng.random(T) < 0.6, 0] += 2
+    lp = torch.log_softmax(torch.from_numpy(logits), -1).to(cuda)
+    lengths = torch.tensor([T] + [T * 3 // 4] * (B - 1), device=cuda)
+    kw = dict(beam_width=W, max_label_len=S, prune=prune)
+    before = beam_search_kernel.launches
+    got = beam_search_kernel(lp, lengths, **kw)
+    assert beam_search_kernel.launches == before + 1
+    _assert_beams_equal(got, beam_search_ref(lp, lengths, **kw), W)
+
+
+def test_beam_kernel_duplicate_nodes(cuda):
+    """The inputs on which the CPU model of the kernel's tree meets parents
+    held by different nodes of the same prefix
+    (tests/test_torch_beam_tree.py)."""
+    (B, T, C, seed), lengths, W, S, prune = PINNED_DUPLICATE
+    lp = torch.from_numpy(lp_numpy(B, T, C, seed)).to(cuda)
+    lengths = torch.tensor(lengths, device=cuda)
+    kw = dict(beam_width=W, max_label_len=S, prune=prune)
+    _assert_beams_equal(beam_search_kernel(lp, lengths, **kw),
+                        beam_search_ref(lp, lengths, **kw), W)
+
+
+@pytest.mark.parametrize("B,T,C,W,S,prune", [(2, 100, 5, 7, 64, None),
+                                             (1, 60, 30, 8, 32, 12),
+                                             (1, 1200, 5, 32, 64, None)])
+def test_beam_kernel_chained_calls(cuda, B, T, C, W, S, prune):
+    """Frames [0, T/2), then [T/2, T) from the state the first call
+    returned: equal to one kernel call and to the plain chain."""
+    lp = torch.from_numpy(lp_numpy(B, T, C, seed=T)).to(cuda)
+    lengths = torch.tensor([T] + [T * 2 // 3] * (B - 1), device=cuda)
+    kw = dict(beam_width=W, max_label_len=S, prune=prune)
+    t1 = T // 2
+    one = beam_search_kernel(lp, lengths, **kw)
+    mid = beam_search_kernel(lp[:, :t1], lengths, **kw)
+    two = beam_search_kernel(lp[:, t1:], lengths, state=mid, t0=t1, **kw)
+    for x, y in zip(two, one):
+        assert torch.equal(x, y)
+    plain = beam_search_ref(lp[:, t1:], lengths, state=beam_search_ref(lp[:, :t1], lengths, **kw),
+                            t0=t1, **kw)
+    _assert_beams_equal(two, plain, W)
 
 
 @pytest.mark.parametrize("B,L,C_in,C,K,d", [(2, 100, 32, 32, 2, 4),

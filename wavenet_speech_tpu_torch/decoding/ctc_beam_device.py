@@ -17,9 +17,15 @@ distinct prefixes), and keeps the top W by total probability.
 replaces the Pallas kernel ops/pallas/attic/beam.py::_beam_kernel, whose
 TPU grid ran the sequences one after another. On an H100 the search is
 bound by neither bytes nor operations but by its chain of dependent
-frames, so the whole frame loop runs inside one block per sequence (all
-sequences at once), with the beam's scalars in shared memory and the
-prefixes and times, too large for it at S = 4608, in device memory.
+frames, so one warp runs a sequence's whole frame loop (all sequences at
+once), and keeps the hypotheses as a prefix tree of (parent, label,
+emission frame) nodes: a frame's work does not grow with the decoded
+length, and the rows are written once, at the end.
+
+Like JAX's ``beam_scan``, ``beam_search_ref`` and ``beam_search_kernel``
+take a beam state (default: the empty beam) and the global index ``t0``
+of their first frame, and return the state: a decode split into calls
+gives what one call gives.
 
 On a CPU tensor it runs the plain version here (``beam_init`` /
 ``beam_scan`` / ``beam_finalize``), a Python loop over frames. It selects
@@ -41,9 +47,10 @@ NEG_INF = -1e30
 MAX_BEAM_WIDTH = 32  # the CUDA kernel's MAXW
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# lp, lengths, pref_buf, times_buf, prefixes, plens, pb, pnb, times;
-# B, T, C, W, S, K, blank; stream
-_SIGNATURES = {"wst_ctc_beam_f32": [_P] * 9 + [_I] * 7 + [_P]}
+# lp, lengths, the input state (prefixes, plens, pb, pnb, times), pool, the
+# output state; B, T, C, W, S, K, blank, t0, cap; stream
+_SIGNATURES = {"wst_ctc_beam_f32": [_P] * 13 + [_I] * 9 + [_P],
+               "wst_ctc_beam_pool_in_shared": [_I] * 4}
 
 BeamState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                   torch.Tensor]
@@ -161,12 +168,13 @@ def beam_init(batch: int, beam_width: int, max_label_len: int,
 
 
 def beam_scan(state: BeamState, log_probs: torch.Tensor, lengths: torch.Tensor,
-              *, blank: int = 0, prune: Optional[int] = None) -> BeamState:
-    """Advance the state over log_probs (B, T, C); frames t >= lengths[b]
+              *, t0: int = 0, blank: int = 0, prune: Optional[int] = None) -> BeamState:
+    """Advance the state over log_probs (B, T, C), whose frames have the
+    global indices t0 + t (JAX's ``ts``); frames t0 + t >= lengths[b]
     carry sequence b's state through unchanged."""
     for t in range(log_probs.shape[1]):
-        new = _beam_step(state, log_probs[:, t], t, blank=blank, prune=prune)
-        live = t < lengths
+        new = _beam_step(state, log_probs[:, t], t0 + t, blank=blank, prune=prune)
+        live = t0 + t < lengths
         state = tuple(
             torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
             for n, o in zip(new, state))
@@ -183,20 +191,37 @@ def beam_finalize(state: BeamState):
             scores.gather(1, order), _take(times, order))
 
 
+def _check_state(state: BeamState, B: int, W: int, S: int, device) -> None:
+    shapes = [(B, W, S), (B, W), (B, W), (B, W), (B, W, S)]
+    dtypes = [torch.int32, torch.int32, torch.float32, torch.float32, torch.int32]
+    for x, shape, dtype in zip(state, shapes, dtypes):
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != device:
+            raise ValueError(f"beam state: expected {shape} {dtype} on {device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+
 def beam_search_ref(log_probs: torch.Tensor, lengths: torch.Tensor, *,
                     beam_width: int, max_label_len: int, blank: int = 0,
-                    prune: Optional[int] = None) -> BeamState:
-    """The plain version of the kernel: the final (unsorted) beam state."""
+                    prune: Optional[int] = None, state: Optional[BeamState] = None,
+                    t0: int = 0) -> BeamState:
+    """The plain version of the kernel: the raw (unsorted) beam state after
+    the frames of log_probs, from ``state`` (default: the empty beam), the
+    first frame's global index being t0."""
     B = log_probs.shape[0]
-    state = beam_init(B, beam_width, max_label_len, device=log_probs.device)
-    return beam_scan(state, log_probs, lengths, blank=blank, prune=prune)
+    if state is None:
+        state = beam_init(B, beam_width, max_label_len, device=log_probs.device)
+    else:
+        _check_state(state, B, beam_width, max_label_len, log_probs.device)
+    return beam_scan(state, log_probs, lengths, t0=t0, blank=blank, prune=prune)
 
 
 def beam_search_kernel(log_probs: torch.Tensor, lengths: torch.Tensor, *,
                        beam_width: int, max_label_len: int, blank: int = 0,
-                       prune: Optional[int] = None) -> BeamState:
-    """The CUDA kernel: one block per sequence runs every frame. Same
-    arguments and result as ``beam_search_ref``; CUDA tensors only.
+                       prune: Optional[int] = None, state: Optional[BeamState] = None,
+                       t0: int = 0) -> BeamState:
+    """The CUDA kernel: one warp runs a sequence's frames. Same arguments
+    and result as ``beam_search_ref``; CUDA tensors only. Given a state, it
+    reads its plens once on the host, to size the node pool.
     ``beam_search_kernel.launches`` counts launches."""
     if log_probs.device.type != "cuda":
         raise ValueError(f"beam_search_kernel: needs a CUDA tensor, got "
@@ -210,9 +235,9 @@ def beam_search_kernel(log_probs: torch.Tensor, lengths: torch.Tensor, *,
     if not 1 <= W <= MAX_BEAM_WIDTH:
         raise ValueError(f"beam_search_kernel: beam_width must be in "
                          f"[1, {MAX_BEAM_WIDTH}], got {W}")
-    if S < 1 or K < 1 or not 0 <= blank < C:
+    if S < 1 or K < 1 or not 0 <= blank < C or t0 < 0:
         raise ValueError(f"beam_search_kernel: bad max_label_len={S}, "
-                         f"prune={prune} or blank={blank} for C={C}")
+                         f"prune={prune}, blank={blank} or t0={t0} for C={C}")
     if lengths.shape != (B,):
         raise ValueError(f"beam_search_kernel: lengths must be ({B},), got "
                          f"{tuple(lengths.shape)}")
@@ -220,10 +245,17 @@ def beam_search_kernel(log_probs: torch.Tensor, lengths: torch.Tensor, *,
     lp = log_probs.contiguous()
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     i32 = dict(device=dev, dtype=torch.int32)
-    # prefixes and times ping-pong through device memory: at S = 4608 they
-    # exceed a block's shared memory
-    pref_buf = torch.empty((B, 2, W, S), **i32)
-    times_buf = torch.empty((B, 2, W, S), **i32)
+    # the node pool: the root, the input state's trie (at most one node a
+    # label), at most W nodes a frame
+    if state is None:
+        state_in, n_in = (None,) * 5, 1
+    else:
+        _check_state(state, B, W, S, dev)
+        state_in = tuple(x.contiguous() for x in state)
+        n_in = 1 + (int(state_in[1].clamp(0, S).sum(1).max()) if B else 0)
+    cap = n_in + W * T
+    if cap >= 2 ** 31:
+        raise ValueError(f"beam_search_kernel: {cap} pool nodes exceed int32")
     prefixes = torch.empty((B, W, S), **i32)
     times = torch.empty((B, W, S), **i32)
     plens = torch.empty((B, W), **i32)
@@ -231,11 +263,15 @@ def beam_search_kernel(log_probs: torch.Tensor, lengths: torch.Tensor, *,
     pnb = torch.empty_like(pb)
     lib = _build.library("ctc_beam", _SIGNATURES)
     with torch.cuda.device(dev):
+        # the pool lives in shared memory where it fits, else in this scratch
+        pool = (None if lib.wst_ctc_beam_pool_in_shared(C, W, K, cap)
+                else torch.empty((B, 3, cap), **i32))
+        ptr = lambda x: None if x is None else x.data_ptr()
         rc = lib.wst_ctc_beam_f32(
-            lp.data_ptr(), lens.data_ptr(), pref_buf.data_ptr(),
-            times_buf.data_ptr(), prefixes.data_ptr(), plens.data_ptr(),
-            pb.data_ptr(), pnb.data_ptr(), times.data_ptr(),
-            B, T, C, W, S, K, blank, torch.cuda.current_stream().cuda_stream)
+            lp.data_ptr(), lens.data_ptr(), *map(ptr, state_in), ptr(pool),
+            prefixes.data_ptr(), plens.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
+            times.data_ptr(), B, T, C, W, S, K, blank, int(t0), cap,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "beam_search_kernel")
     beam_search_kernel.launches += 1
     return prefixes, plens, pb, pnb, times
