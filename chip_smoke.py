@@ -82,6 +82,28 @@ from a seed; B=8 one-hot reads of L=4505):
      (d) 3 steps, params bit-identical across ranks, updates within
      SENS_FACTOR x the cuDNN composite's distance from 3 single-device
      steps. With 2 or more cards it runs again on NCCL, one rank a card.
+  9. serves long reads: configs/gauss_quality.json's RawCTCNet at full width
+     (512 features, 25 stack blocks + the input block, non-causal; res_w
+     scaled as in 4, blank's bias 2 over JAX's long-read test's), B=8
+     raw reads of 100,000 samples. (a) chunked_logits_batch (chunks of
+     16384 samples, margin 312, groups of 8) within LONG_LOGIT_RTOL x
+     max|logit| of the monolithic forward on 2 reads; (b) the main path,
+     Basecaller.basecall_long_batch: one B6 launch a beam chunk of 4096
+     frames from the carried state (25 a call), no saturated window, the
+     streamed basecalls equal one B6 call over the same log-probs; (c) the
+     first 3 chunks of 1024 frames (B6's pool in shared memory), and 2
+     chunks of 4096 from (b)'s carried state mid-read (the pool in the global
+     scratch, as in every call of (b)), streamed on B6 and on its plain
+     version: every state equal up to plens, the committed labels and times
+     equal;
+     (d) the basecall command on a checkpoint of those weights, with --long
+     and through the automatic switch: FASTA equal to (b)'s; (e) the bench
+     model's causal WaveNet on 2 one-hot reads of 100,000 through
+     chunked_logits(model.model_base, ...): B4 in every chunk forward, held
+     to the monolithic base forward, and B4 at the chunk shape to its plain
+     version; (f) the long call's time, reads/s and samples/s, the chunked
+     forwards', B6's a chunk call and a frame, the input trie's, the
+     commit's, and the peak memory.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -110,12 +132,14 @@ import torch.nn.functional as F
 
 from wavenet_speech_tpu_torch import cli
 from wavenet_speech_tpu_torch.data.prefetch import batch_to_device
-from wavenet_speech_tpu_torch.decoding import ctc_beam_device
+from wavenet_speech_tpu_torch.decoding import ctc_beam_device, streaming
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
-    NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref, ctc_beam_search)
-from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode
+    NEG_INF, beam_finalize, beam_init, beam_search_kernel, beam_search_ref, ctc_beam_search)
+from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
+from wavenet_speech_tpu_torch.decoding.streaming import StreamingBeamBatch
 from wavenet_speech_tpu_torch.facade import Model
-from wavenet_speech_tpu_torch.inference import Basecaller
+from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _default_margin,
+                                                chunked_logits, chunked_logits_batch)
 from wavenet_speech_tpu_torch.models import blocks
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
@@ -1371,11 +1395,11 @@ def phase_train_cli(dev):
     return counts
 
 
-def check_cli_kernels(model, batch, t, cfg):
+def check_cli_kernels(model, batch, t):
     """B4-bf16 and B5-bf16 against their plain versions at each of the train
     loop's blocks, on the inputs and cotangents of one bf16 step's objective
     (the config's loss, length-aware logit lengths) at its own shape."""
-    fn = cli._logit_length_fn(cfg) if t.get("length_aware_ctc") else None
+    fn = model.output_length if t.get("length_aware_ctc") else None
     blocks_io = capture_blocks(model, batch, BF16, JointLoss(t.get("loss", "joint")), fn)
     f_err = b_err = 0.0
     for x, fw, d, dr, ds in blocks_io:
@@ -1396,7 +1420,7 @@ def cli_parts(cfg, dev, ckpt_dir):
     ds, model, state, (step, *_), eval_fn, t = cli.build_from_config(copy.deepcopy(cfg), dev)
     fetch_ms, b = host_ms(lambda: ds.fetch("valid"), 10)
     copy_ms, batch = host_ms(lambda: batch_to_device(b, dev), 10)
-    check_cli_kernels(model, batch, t, cfg)
+    check_cli_kernels(model, batch, t)
     box = [state]
 
     def one_step():
@@ -1817,6 +1841,372 @@ def run_parallel(dev, card):
     return rows
 
 
+# ---- 9. long-read serving ------------------------------------------------------
+
+LONG_CONFIG = Path(__file__).resolve().parent / "configs" / "gauss_quality.json"
+LONG_B, LONG_L = 8, 100_000          # reads above the CLI's 65,536-sample switch
+LONG_CHUNK, LONG_CHUNK_BATCH = 16384, 8
+# the beam's chunk and label window in (b): a chunk adds at most one label a
+# frame, so a window of twice the chunk cannot fill unless a commit leaves
+# more than a chunk's worth of labels in it; the CLI in (d) keeps JAX's
+# defaults (2048, 4096) and reports its count
+LONG_BEAM_FRAMES, LONG_WINDOW = 4096, 8192
+CLI_WINDOW = 2048                    # Basecaller.basecall_long_batch's default
+PLAIN_BEAM_CHUNKS, PLAIN_BEAM_FRAMES = 3, 1024  # (c): the plain beam is a frame loop
+PLAIN_MAIN_CHUNKS = 2                # (c): chunks at the main path's shape, mid-read
+LONG_MONO_READS = 2                  # (a), (e): monolithic forwards on 2 reads
+# stitched logits against the monolithic forward: the same float32 sums,
+# which cuDNN and cuBLAS may take in another order for a (chunk_batch,
+# chunk_len) shape than for a whole read; the error scales with the
+# logits' magnitude: |chunked - monolithic| <= LONG_LOGIT_RTOL x max|monolithic|
+LONG_LOGIT_RTOL = 1e-4
+# the head's bias: JAX's long-read test's (tests/test_streaming_beam.py:85-96)
+# with blank raised by 2. Its other step, out2.w x 3, is left out: at full
+# width it makes the head so confident (max|logit| 48) that beams differing
+# at old positions stay in the beam, the live beams' common prefix stops
+# growing, and no fixed window holds the uncommitted labels. JAX's bias alone
+# aims at the rate that test names, ~1 label in 6 frames, but at full width
+# gives ~0.36 labels a frame: more labels stand in a live window before a
+# commit than the CLI's window of 2048 holds ((b) logs both; PERF.md §6)
+JAX_HEAD_BIAS = (0.6, 0.9, -0.3, 0.1, -0.7)
+LONG_HEAD_BIAS = (JAX_HEAD_BIAS[0] + 2.0, *JAX_HEAD_BIAS[1:])
+
+
+def long_read_model(dev):
+    """configs/gauss_quality.json's RawCTCNet at full width from the seed,
+    res_w scaled by 1/sqrt(2) (phase 4), and the head biased toward blank
+    (LONG_HEAD_BIAS), which also parts the eye-init net's near-tied
+    labels."""
+    cfg = json.loads(LONG_CONFIG.read_text())
+    model = Model("raw-ctcnet", cfg, device=dev).init(SEED)
+    net = model.model_ctc
+    with torch.no_grad():
+        for blk in [net.input_block, *net.stack.blocks]:
+            blk.res_w.mul_(0.5 ** 0.5)
+        net.out2.b.add_(torch.tensor(LONG_HEAD_BIAS, device=dev))
+    return cfg, model
+
+
+def window_occupancy(lp, window):
+    """The most labels a live beam holds in its window over the streamed
+    decode of lp, before and after each commit (B6 launches outside the
+    main path), and the decode's labels a frame. A window that stays above
+    the first never caps an extension (the saturation count, JAX's, reads
+    only the second)."""
+    Bx, T, C = lp.shape
+    lengths = torch.full((Bx,), T, dtype=torch.int32, device=lp.device)
+    state = beam_init(Bx, BEAM_WIDTH, window, device=lp.device)
+    live_max = lambda st: int(torch.where(torch.logaddexp(st[2], st[3]) > NEG_INF / 2,
+                                          st[1], 0).max())
+    before = after = labels = 0
+    for s in range(0, T, LONG_BEAM_FRAMES):
+        chunk = lp[:, s: s + LONG_BEAM_FRAMES]
+        if chunk.shape[1] < LONG_BEAM_FRAMES:
+            chunk = torch.cat([chunk, chunk.new_zeros((Bx, LONG_BEAM_FRAMES - chunk.shape[1], C))],
+                              dim=1)
+        raw = beam_search_kernel(chunk, lengths, beam_width=BEAM_WIDTH, max_label_len=window,
+                                 state=state, t0=s)
+        state, k = streaming.commit(raw, window)[:2]
+        before, after = max(before, live_max(raw)), max(after, live_max(state))
+        labels += int(k.sum())
+    labels += int(beam_finalize(state)[1][:, 0].sum())
+    return before, after, labels / (Bx * T)
+
+
+def hold_logits(label, got, want):
+    """got within LONG_LOGIT_RTOL x max|want| of want; returns (max error,
+    max|want|)."""
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    log(f"{label}: {want.shape[0]} reads x {want.shape[1]} frames x {want.shape[2]} compared, "
+        f"max_abs_err {err:.3e}, max|monolithic| {scale:.3e} (bound {LONG_LOGIT_RTOL} x max)")
+    if not (got.shape == want.shape and err <= LONG_LOGIT_RTOL * scale):
+        raise AssertionError(f"{label}: chunked logits differ from the monolithic forward")
+    return err, scale
+
+
+def pool_in_shared(state, frames):
+    """Whether B6's node pool for a call of `frames` frames from state fits
+    in shared memory (the wrapper's rule: ctc_beam_kernel<true>), or goes to
+    the global scratch (ctc_beam_kernel<false>)."""
+    n_in = 1 + int(state[1].clamp(0, state[0].shape[2]).sum(1).max())
+    lib = _build.library("ctc_beam", ctc_beam_device._SIGNATURES)
+    return bool(lib.wst_ctc_beam_pool_in_shared(LABELS, BEAM_WIDTH, LABELS,
+                                                 n_in + BEAM_WIDTH * frames))
+
+
+def stream_chunks(lp, plain, frames, chunks, start=None):
+    """(c): `chunks` chunks of `frames` frames through StreamingBeamBatch, on
+    B6 or on its plain version, from a copy of `start` (default: the empty
+    beam at frame 0); the state, the committed labels and times after each,
+    and whether each call's pool fit in shared memory."""
+    Bx, T, _ = lp.shape
+    sbb = (copy.deepcopy(start) if start is not None else
+           StreamingBeamBatch(Bx, [T] * Bx, beam_width=BEAM_WIDTH, label_window=LONG_WINDOW,
+                              device=lp.device))
+    ctx = (mock.patch.object(streaming, "beam_search_kernel", beam_search_ref) if plain
+           else contextlib.nullcontext())
+    out, shared = [], []
+    with ctx:
+        for _ in range(chunks):
+            s = sbb.frames_fed
+            shared.append(pool_in_shared(sbb.state, frames))
+            sbb.feed(lp[:, s: s + frames])
+            out.append((tuple(x.cpu() for x in sbb.state), sbb.committed, sbb.committed_times))
+    return out, shared
+
+
+def compare_streams(label, got, want):
+    """Each chunk's state equal up to plens (live rows; past plens a row
+    holds labels its commits rolled out), the committed labels and times
+    equal, scores within BEAM_SCORE_ATOL. Returns (live rows, labels
+    committed, max score error)."""
+    err, live_rows = 0.0, 0
+    for i, ((s1, c1, t1), (s0, c0, t0)) in enumerate(zip(got, want)):
+        p1, l1, pb1, pnb1, tm1 = s1
+        p0, l0, pb0, pnb0, tm0 = s0
+        live = torch.logaddexp(pb0, pnb0) > NEG_INF / 2
+        if not torch.equal(live, torch.logaddexp(pb1, pnb1) > NEG_INF / 2):
+            raise AssertionError(f"{label} chunk {i}: the live rows differ")
+        for b, r in zip(*torch.nonzero(live, as_tuple=True)):
+            n = int(l0[b, r])
+            if int(l1[b, r]) != n or not (torch.equal(p1[b, r, :n], p0[b, r, :n])
+                                          and torch.equal(tm1[b, r, :n], tm0[b, r, :n])):
+                raise AssertionError(f"{label} chunk {i}: read {int(b)} row {int(r)} differs")
+            err = max(err, float((pb1[b, r] - pb0[b, r]).abs()),
+                      float((pnb1[b, r] - pnb0[b, r]).abs()))
+            live_rows += 1
+        if not all(np.array_equal(a, b) for a, b in zip(c1 + t1, c0 + t0)):
+            raise AssertionError(f"{label} chunk {i}: committed labels or times differ")
+    if err > BEAM_SCORE_ATOL:
+        raise AssertionError(f"{label} scores differ by {err}")
+    return live_rows, sum(map(len, want[-1][1])), err
+
+
+def cli_basecall(cfg, model, reads, tmp, long_flag):
+    """(d): the basecall command on a checkpoint of the model's weights;
+    returns (sequences, scores, saturated_chunks, launches)."""
+    run = Path(tmp) / "long_run"
+    cfg = copy.deepcopy(cfg)
+    cfg["training"]["save_dir"] = str(run)
+    if not (run / "ckpts").is_dir():
+        opt = cfg["training"]["optim"]
+        tx = build_optimizer(opt["type"], opt["learning_rate"])
+        save_checkpoint(str(run / "ckpts"), TrainState.create(model.params(), tx))
+        np.save(Path(tmp) / "long_reads.npy", reads)
+    cfg_path = Path(tmp) / "long.json"
+    cfg_path.write_text(json.dumps(cfg))
+    fasta = Path(tmp) / f"long_{long_flag}.fa"
+    callers = []
+    orig = Basecaller.basecall_long_batch
+
+    def record(self, *a, **kw):
+        callers.append(self)
+        return orig(self, *a, **kw)
+
+    reset_counts()
+    with mock.patch.object(Basecaller, "basecall_long_batch", record):
+        rc = cli.main(["basecall", str(cfg_path), "--signals",
+                       str(Path(tmp) / "long_reads.npy"), "--out", str(fasta)]
+                      + (["--long"] if long_flag else []))
+    launches = {k: v for k, v in read_counts().items() if v}
+    lines = fasta.read_text().splitlines()
+    if rc != 0 or len(callers) != 1 or len(lines) != 2 * len(reads):
+        raise AssertionError(f"(d) basecall: rc {rc}, {len(callers)} long calls, "
+                             f"{len(lines)} FASTA lines")
+    return (lines[1::2], [l.split("score=")[1] for l in lines[::2]],
+            callers[0].saturated_chunks, launches)
+
+
+def phase_long_wavenet(dev):
+    """(e): the bench model's causal WaveNet, 2 one-hot reads of LONG_L,
+    through chunked_logits(model.model_base, ...) read by read: B4 in every
+    chunk forward, the stitched output held to the monolithic base forward,
+    B4 at the chunk shape held to its plain version at every block."""
+    model = scale_res_w(Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED))
+    base = model.model_base
+    reads = torch.from_numpy(onehot_reads(np.random.default_rng(SEED + 9), LONG_MONO_READS,
+                                          LONG_L, LEVELS)).to(dev)
+    margin = _default_margin(base)
+    starts, _, _ = _chunk_grid(base, LONG_L, LONG_CHUNK, margin)
+    with torch.inference_mode():
+        reset_counts()
+        ms, chunked = host_ms(lambda: torch.stack(
+            [chunked_logits(base, r, LONG_CHUNK, chunk_batch=LONG_CHUNK_BATCH) for r in reads]))
+        launches = fused_gated_block.launches
+        groups = LONG_MONO_READS * math.ceil(len(starts) / LONG_CHUNK_BATCH)
+        if launches != len(WAVENET_DILS) * groups or read_counts()["ctc_beam"]:
+            raise AssertionError(f"(e) B4 launched {launches} times: expected "
+                                 f"{len(WAVENET_DILS)} blocks x {groups} chunk groups")
+        err, _ = hold_logits(f"(e) causal WaveNet ({len(WAVENET_DILS)} blocks, {LEVELS} "
+                             f"channels), chunked_logits (margin {margin}, {len(starts)} "
+                             f"chunks a read) against the monolithic base forward",
+                             chunked, base(reads))
+        # B4 at the chunk forwards' shape, on the plain path's activations
+        x = base.entry(reads[0, :LONG_CHUNK][None].expand(LONG_CHUNK_BATCH, -1, -1)
+                       .contiguous())
+        b4_err = 0.0
+        for blk in base.stack.blocks:
+            a = (blk.gate_w, blk.gate_b, blk.out_w[0], blk.out_b, blk.res_w, blk.res_b)
+            want = fused_gated_block_ref(x, *a, blk.dilation)
+            b4_err = max(b4_err, hold_b4(blk.dilation, fused_gated_block(x, *a, blk.dilation),
+                                         want)[0])
+            x = want[0]
+    log(f"(e) B4 launches {launches} ({len(WAVENET_DILS)} blocks x {groups} groups of "
+        f"{LONG_CHUNK_BATCH} chunks); chunked forwards of {LONG_MONO_READS} reads {ms:.1f} ms "
+        f"(host clock); B4 at the chunk shape ({LONG_CHUNK_BATCH}, {LONG_CHUNK}, {LEVELS}) "
+        f"within phase 1's tolerance at all {len(WAVENET_DILS)} blocks, max_abs_err "
+        f"{b4_err:.3e}")
+    return dict(launches=launches, err=err)
+
+
+def run_long_read(dev, card):
+    """Phase 9: long reads through Basecaller.basecall_long_batch (chunked
+    forwards + the streaming beam, B6 with the state carried), the basecall
+    command, and a causal WaveNet's chunked forwards (B4). card: nvidia-smi's
+    name and power limit, printed beside the times."""
+    t0 = time.perf_counter()
+    cfg, model = long_read_model(dev)
+    reads = np.random.default_rng(SEED + 8).standard_normal((LONG_B, LONG_L)).astype(np.float32)
+    sig = torch.from_numpy(reads[..., None]).to(dev)
+    margin = _default_margin(model)
+    starts, _, _ = _chunk_grid(model, LONG_L, LONG_CHUNK, margin)
+    T = model.output_length(LONG_L)
+    log(f"phase 9 model: configs/gauss_quality.json's RawCTCNet, "
+        f"{model.model_ctc.num_features} features, {len(model.layers)} stack blocks + the "
+        f"input block, non-causal, res_w scaled, head bias {LONG_HEAD_BIAS}; reads {LONG_B} x "
+        f"{LONG_L} raw samples -> {T} logit frames; margin {margin}, {len(starts)} chunks of "
+        f"{LONG_CHUNK} a read in groups of {LONG_CHUNK_BATCH}")
+    caller = Basecaller(model, beam_width=BEAM_WIDTH, logit_length_fn=model.output_length,
+                        device=dev)
+    long_kw = dict(chunk_len=LONG_CHUNK, chunk_batch=LONG_CHUNK_BATCH,
+                   beam_chunk_frames=LONG_BEAM_FRAMES, label_window=LONG_WINDOW)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        # ---- (a) the chunked forwards against the monolithic forward
+        logits = chunked_logits_batch(model, sig, LONG_CHUNK, chunk_batch=LONG_CHUNK_BATCH)
+        if logits.shape != (LONG_B, T, LABELS) or not torch.isfinite(logits).all():
+            raise AssertionError(f"(a) logits {tuple(logits.shape)} not finite/shaped")
+        a_err, _ = hold_logits(f"(a) chunked_logits_batch ({LONG_B * len(starts)} chunk "
+                               f"forwards) against the monolithic forward",
+                               logits[:LONG_MONO_READS], model(sig[:LONG_MONO_READS]))
+        lp = torch.log_softmax(logits, -1)
+        # ---- (b) the main path: the long call, B6 on the carried state
+        reset_counts()
+        seqs, scores = caller.basecall_long_batch(reads[..., None], **long_kw)
+        launches = {k: v for k, v in read_counts().items() if v}
+        want_launches = {"ctc_beam": math.ceil(T / LONG_BEAM_FRAMES)}
+        if launches != want_launches or caller.saturated_chunks:
+            raise AssertionError(f"(b) launches {launches} (expected {want_launches}), "
+                                 f"saturated chunks {caller.saturated_chunks}")
+        lengths = torch.full((LONG_B,), T, dtype=torch.int32, device=dev)
+        mono = beam_finalize(beam_search_kernel(lp, lengths, beam_width=BEAM_WIDTH,
+                                                max_label_len=T))
+        mono_seqs = labels2strings([mono[0][b, 0, : int(mono[1][b, 0])].cpu().numpy()
+                                    for b in range(LONG_B)])
+        score_err = max(abs(a - float(b)) for a, b in zip(scores, mono[2][:, 0]))
+        if seqs != mono_seqs or score_err > BEAM_SCORE_ATOL:
+            raise AssertionError(f"(b) streamed decode differs from one B6 call: reads "
+                                 f"{[b for b in range(LONG_B) if seqs[b] != mono_seqs[b]]}, "
+                                 f"score diff {score_err:.3e}")
+        rate = sum(map(len, seqs)) / (LONG_B * T)
+        occupancy = {w: window_occupancy(lp, w)[:2] for w in (LONG_WINDOW, CLI_WINDOW)}
+        log(f"(b) basecall_long_batch: launches {launches} ({T} frames in chunks of "
+            f"{LONG_BEAM_FRAMES}, window {LONG_WINDOW}), saturated chunks 0; the streamed "
+            f"labels of all {LONG_B} reads equal one B6 call over the stitched log-probs "
+            f"(S = T = {T}), max score diff {score_err:.3e}; {rate:.3f} labels a frame, "
+            f"mean length {sum(map(len, seqs)) / LONG_B:.0f}; most labels in a live window "
+            f"before / after a commit: " + ", ".join(
+                f"window {w}: {b} / {a}" for w, (b, a) in occupancy.items()))
+        if any(b >= w for w, (b, _) in occupancy.items()):
+            raise AssertionError(f"(b) a label window filled: {occupancy}")
+        # the same logits with JAX's test bias alone (blank 2 lower), for the record
+        jax_lp = torch.log_softmax(logits + logits.new_tensor(JAX_HEAD_BIAS)
+                                   - logits.new_tensor(LONG_HEAD_BIAS), -1)
+        j_before, j_after, j_rate = window_occupancy(jax_lp, LONG_WINDOW)
+        log(f"(b) the head with JAX's test bias {JAX_HEAD_BIAS} alone: {j_rate:.3f} labels a "
+            f"frame; most labels in a live window before / after a commit {j_before} / "
+            f"{j_after} (window {LONG_WINDOW}; the CLI's {CLI_WINDOW} "
+            f"{'would fill' if j_before >= CLI_WINDOW else 'holds'})")
+        del jax_lp
+        # ---- (c) streaming on B6 against streaming on its plain version: the
+        # first chunks of 1024 frames (the pool in shared memory), then chunks
+        # at the main path's shape from its carried state mid-read (the pool
+        # in the global scratch, as in every call of (b))
+        mid = math.ceil(T / LONG_BEAM_FRAMES) // 2
+        start = StreamingBeamBatch(LONG_B, [T] * LONG_B, beam_width=BEAM_WIDTH,
+                                   label_window=LONG_WINDOW, device=dev)
+        for i in range(mid):
+            start.feed(lp[:, i * LONG_BEAM_FRAMES: (i + 1) * LONG_BEAM_FRAMES])
+        for c_label, frames, chunks, first, in_shared in (
+                ("(c)", PLAIN_BEAM_FRAMES, PLAIN_BEAM_CHUNKS, None, True),
+                ("(c, main shape)", LONG_BEAM_FRAMES, PLAIN_MAIN_CHUNKS, start, False)):
+            reset_counts()
+            on_kernel, shared = stream_chunks(lp, False, frames, chunks, first)
+            if read_counts()["ctc_beam"] != chunks:
+                raise AssertionError(f"{c_label} B6 not launched once a chunk")
+            if shared != [in_shared] * chunks:
+                raise AssertionError(f"{c_label} pool in shared memory {shared}, expected "
+                                     f"{in_shared}")
+            plain_ms, (on_plain, _) = host_ms(lambda: stream_chunks(lp, True, frames, chunks,
+                                                                    first))
+            if read_counts()["ctc_beam"] != chunks:
+                raise AssertionError(f"{c_label} the plain stream launched B6")
+            live_rows, committed, c_err = compare_streams(c_label, on_kernel, on_plain)
+            t_first = 0 if first is None else first.frames_fed
+            log(f"{c_label} {chunks} chunks of ({LONG_B}, {frames}, {LABELS}) from frame "
+                f"{t_first} (B6's pool in {'shared memory' if in_shared else 'the global scratch'}"
+                f"), streamed on B6 and on its plain version ({plain_ms / 1e3:.1f} s): every "
+                f"chunk's {live_rows // chunks} live rows equal up to plens, {committed} "
+                f"committed labels and their times equal, max score error {c_err:.3e}")
+        # ---- (f) times
+        call_ms, _ = host_ms(lambda: caller.basecall_long_batch(reads[..., None], **long_kw))
+        fwd_ms, _ = host_ms(lambda: chunked_logits_batch(model, sig, LONG_CHUNK,
+                                                         chunk_batch=LONG_CHUNK_BATCH))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sbb = StreamingBeamBatch(LONG_B, [T] * LONG_B, beam_width=BEAM_WIDTH,
+                                 label_window=LONG_WINDOW, device=dev)
+        sbb.feed(lp[:, :LONG_BEAM_FRAMES])
+        kw = dict(beam_width=BEAM_WIDTH, max_label_len=LONG_WINDOW, state=sbb.state)
+        chunk = lp[:, LONG_BEAM_FRAMES: 2 * LONG_BEAM_FRAMES].contiguous()
+        b6_ms = cuda_ms(lambda: beam_search_kernel(chunk, lengths, t0=LONG_BEAM_FRAMES, **kw), 3)
+        trie_ms = cuda_ms(lambda: beam_search_kernel(chunk[:, :1], lengths, t0=T, **kw), 5)
+        raw = beam_search_kernel(chunk, lengths, t0=LONG_BEAM_FRAMES, **kw)
+        commit_ms, _ = host_ms(lambda: streaming.commit(raw, LONG_WINDOW), 5)
+        n_in = 1 + int(sbb.state[1].clamp(min=0).sum(1).max())
+        b6_pool = ("shared memory" if pool_in_shared(sbb.state, LONG_BEAM_FRAMES)
+                   else "the global scratch")
+    log(f"(f) long call {call_ms:.1f} ms ({LONG_B / call_ms * 1e3:.2f} reads/s, "
+        f"{LONG_B * LONG_L / call_ms * 1e3:.0f} samples/s; host clock, one call after a warm "
+        f"one); its chunked forwards alone {fwd_ms:.1f} ms; B6 {b6_ms:.3f} ms a chunk call of "
+        f"{LONG_BEAM_FRAMES} frames from a carried state ({b6_ms * 1e3 / LONG_BEAM_FRAMES:.3f} "
+        f"us a frame; pool {n_in} input nodes + {BEAM_WIDTH} x {LONG_BEAM_FRAMES}, in "
+        f"{b6_pool}), a call "
+        f"with the carried state and no live frame (input trie, rows written back) "
+        f"{trie_ms:.4f} ms; the commit {commit_ms:.3f} ms a chunk (host clock, its copy to "
+        f"the host included); peak memory {peak:.2f} GiB; card {card}")
+    # ---- (d) the basecall command on a checkpoint of these weights
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = {}
+        for long_flag in (True, False):
+            fasta[long_flag] = cli_basecall(cfg, model, reads, tmp, long_flag)
+    for long_flag, (cseqs, cscores, sat, cl) in fasta.items():
+        name = "--long" if long_flag else "the automatic switch"
+        if sat:
+            raise AssertionError(f"(d) basecall, {name}: the label window saturated in {sat} "
+                                 f"(chunk, read) pairs")
+        if cseqs != seqs or cscores != [f"{s:.3f}" for s in scores]:
+            raise AssertionError(f"(d) basecall, {name}: the FASTA differs from (b)'s")
+    log(f"(d) basecall command (JAX's defaults: window 2048, beam chunks 4096), --long and "
+        f"the automatic switch above 65,536 samples: FASTA equal to (b)'s strings and "
+        f"scores; saturated (chunk, read) pairs 0; launches {fasta[True][3]}")
+    del model, caller, logits, lp, sig, raw, sbb, start
+    torch.cuda.empty_cache()
+    # ---- (e) a causal WaveNet's chunked forwards: B4 in every chunk
+    e = phase_long_wavenet(dev)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return dict(b6_launches=launches["ctc_beam"], b4_launches=e["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1964,6 +2354,8 @@ def main() -> int:
     cli_launches = phase_train_cli(dev)
     # ---- 8. DP and SP over torch.distributed: this slice's main path
     b3 = run_parallel(dev, smi)
+    # ---- 9. long-read serving: chunked forwards, B6 on the carried state
+    long_read = run_long_read(dev, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
 
@@ -1973,13 +2365,15 @@ def main() -> int:
              replaces="wavenet_speech_tpu/ops/pallas/residual_block.py:58",
              launches=launches["fused_gated_block"], max_abs_err=b4["err"],
              ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
-             bound_by=b4["bound_by"], library_ms=b4["library_ms"]),
+             bound_by=b4["bound_by"], library_ms=b4["library_ms"],
+             long_read_launches=long_read["b4_launches"]),
         dict(name="ctc_beam", route="cuda",
              source="wavenet_speech_tpu_torch/csrc/ctc_beam.cu",
              replaces="wavenet_speech_tpu/ops/pallas/attic/beam.py:62",
              launches=launches["ctc_beam"], max_abs_err=b6["err"],
              ms=b6["ms"], plain_ms=b6["plain_ms"], bound_ms=b6["bound_ms"],
-             bound_by=b6["bound_by"], library_ms=None, us_per_frame=b6["us_per_frame"]),
+             bound_by=b6["bound_by"], library_ms=None, us_per_frame=b6["us_per_frame"],
+             long_read_launches=long_read["b6_launches"]),
         dict(name="fused_gated_block_bwd", route="cuda",
              source="wavenet_speech_tpu_torch/csrc/fused_block_bwd.cu",
              replaces="wavenet_speech_tpu/ops/pallas/residual_block.py:201",

@@ -50,6 +50,14 @@ def test_checked_files_cover_the_parallel_layer():
     assert "tests/torch_rank_programs.py" in names
 
 
+def test_checked_files_cover_the_long_read_slice():
+    """RawCTCNet, the streaming beam, long-read inference and the basecall
+    command are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("models/raw_ctcnet", "decoding/streaming", "inference", "cli", "facade"):
+        assert f"wavenet_speech_tpu_torch/{mod}.py" in names
+
+
 def test_checker_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\n"

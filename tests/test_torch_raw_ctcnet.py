@@ -1,0 +1,204 @@
+"""The port's RawCTCNet, eval-mode BatchNorm1d and Model("raw-ctcnet")
+against the JAX package on the CPU, JAX params carried over by the bridge
+(unrolled and cycle-stacked stacks), on raw float signals made from a seed.
+Tolerance: rtol 1e-4, atol 1e-5, as the other model tests (sums over
+several blocks in another order). Also the new init arguments, hardtanh,
+with_noise, and that training a raw-ctcnet still raises (ROADMAP A8)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavenet_speech_tpu import facade as jfacade
+from wavenet_speech_tpu.models import RawCTCNet as JRawCTCNet
+from wavenet_speech_tpu.nn import initializers as jinit
+from wavenet_speech_tpu.ops.activations import hardtanh as jhardtanh
+from wavenet_speech_tpu_torch import bridge, cli
+from wavenet_speech_tpu_torch.facade import BatchNorm1d, Model
+from wavenet_speech_tpu_torch.models import RawCTCNet, ResidualBlock, SkipSumStack
+from wavenet_speech_tpu_torch.nn import initializers as init
+from wavenet_speech_tpu_torch.ops.activations import hardtanh
+from wavenet_speech_tpu_torch.training import (build_optimizer, make_eval_step,
+                                               make_joint_train_step)
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+F = 12
+
+
+def _np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _raw(B, L, seed):
+    return np.random.default_rng(seed).standard_normal((B, L, 1)).astype(np.float32)
+
+
+def raw_cfg(blocks=2, dilations=(1, 2), F=F, causal=False):
+    return {"model": {"type": "raw-ctcnet",
+                      "raw": {"num_features": F, "feature_kwidth": 3, "num_labels": 5,
+                              "num_dilation_blocks": blocks, "kernel": 3,
+                              "dilations": list(dilations), "out_dim": F,
+                              "causal": causal}}}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("positions", [False, True])
+def test_raw_ctcnet_matches_jax(positions, causal):
+    """Output L + fk - 1 frames; causal blocks run the fused block's plain
+    version on the CPU, non-causal ones the composite."""
+    layers = tuple((F, F, 3, d) for d in (1, 2, 4)) * 2
+    jnet = JRawCTCNet(F, 3, 5, layers, F, positions=positions, softmax=False, causal=causal)
+    params = jnet.init(jax.random.PRNGKey(0))
+    tnet = RawCTCNet(F, 3, 5, layers, F, positions=positions, softmax=False, causal=causal,
+                     device="cpu")
+    tnet.load_state_dict(bridge.raw_ctcnet_from_jax(_np_tree(params)))
+    x = _raw(2, 150, 1)
+    with torch.no_grad():
+        out = tnet(torch.from_numpy(x))
+    ref = np.asarray(jnet.apply(params, jnp.asarray(x)))
+    assert out.shape == ref.shape == (2, 150 + 2, 5)
+    assert tnet.output_length(150) == jnet.output_length(150) == 152
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+def test_raw_ctcnet_softmax_matches_jax():
+    layers = ((F, F, 3, 1), (F, F, 3, 2))
+    jnet = JRawCTCNet(F, 5, 5, layers, F)
+    params = jnet.init(jax.random.PRNGKey(3))
+    tnet = RawCTCNet(F, 5, 5, layers, F, device="cpu")
+    tnet.load_state_dict(bridge.raw_ctcnet_from_jax(_np_tree(params)))
+    x = _raw(1, 64, 3)
+    with torch.no_grad():
+        out = tnet(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, np.asarray(jnet.apply(params, jnp.asarray(x))), **TOL)
+    np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+
+
+def test_batchnorm_eval_matches_jax():
+    """The running-statistics form with gamma, beta, mean and var away from
+    their init."""
+    rng = np.random.default_rng(4)
+    p = {k: rng.uniform(0.5, 2.0, size=(1,)).astype(np.float32)
+         for k in ("gamma", "beta", "mean", "var")}
+    jbn = jfacade.BatchNorm1d(1, use_running=True)
+    bn = BatchNorm1d(1, device="cpu")
+    bn.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
+    x = _raw(2, 40, 5) * 3
+    with torch.no_grad():
+        got = bn(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jbn.apply(p, jnp.asarray(x))), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_batchnorm_training_form_raises():
+    """BatchNorm1d has only its eval form: forward normalizes with the
+    running statistics; update_state and the train step refuse, citing A8."""
+    bn = BatchNorm1d(1, device="cpu")
+    bn.reset_parameters()
+    assert [float(getattr(bn, k).detach()) for k in ("gamma", "beta", "mean", "var")] == [1, 0, 0, 1]
+    assert torch.equal(bn(torch.ones(1, 4, 1)), torch.ones(1, 4, 1) * (1 / (1 + 1e-5) ** 0.5))
+    with pytest.raises(NotImplementedError, match="A8"):
+        bn.update_state({}, {}, torch.zeros(1, 4, 1))
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_joint_train_step(bn, torch.nn.Identity(), build_optimizer("adam", 1e-3))
+
+
+@pytest.mark.parametrize("blocks", [1, 2])  # unrolled, cycle-stacked
+def test_model_raw_ctcnet_predict_matches_jax(blocks):
+    cfg = raw_cfg(blocks)
+    jm = jfacade.Model("raw-ctcnet", cfg)
+    params = jm.init(jax.random.PRNGKey(2))
+    assert ("cycle" in params["ctc"]["stack"]) == (blocks > 1)
+    params["base"] = {k: jnp.asarray([v], jnp.float32)
+                      for k, v in (("gamma", 1.5), ("beta", 0.2), ("mean", -0.3), ("var", 2.0))}
+    tm = Model("raw-ctcnet", cfg, device="cpu").load_jax(_np_tree(params))
+    x = _raw(2, 130, 6)
+    with torch.no_grad():
+        base, logits = tm.predict(torch.from_numpy(x))
+        assert torch.equal(tm(torch.from_numpy(x)), logits)
+    jbase, jlogits = jm.predict(params, jnp.asarray(x))
+    np.testing.assert_allclose(base.numpy(), np.asarray(jbase), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert logits.shape == (2, 132, 5)
+    assert tm.output_length(130) == 132 and tm.feature_kwidth == 3
+    assert tm.layers == jm.model_ctc.layers
+    assert not hasattr(tm, "entry_kwidth")
+
+
+def test_model_raw_ctcnet_init_is_seeded_and_noisy():
+    a = Model("raw-ctcnet", raw_cfg(), device="cpu").init(3)
+    b = Model("raw-ctcnet", raw_cfg(), device="cpu").init(3)
+    for (na, pa), (nb, pb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert na == nb and torch.equal(pa, pb)
+    names = set(a.state_dict())
+    want = set(bridge.params_from_jax(_np_tree(
+        jfacade.Model("raw-ctcnet", raw_cfg()).init(jax.random.PRNGKey(0)))))
+    assert names == want
+    r = a.model_ctc
+    for w in (r.input_bottleneck.w, r.stack.bottlenecks[0].w):  # eye + 1e-4 noise
+        d = (w - torch.eye(F)).detach()
+        assert 0 < float(d.abs().max()) < 1e-3
+    for bias in (r.feat_conv.b, r.out2.b, r.stack.blocks[0].gate_b):  # zeros + 1e-4 noise
+        assert 0 < float(bias.detach().abs().max()) < 1e-3
+    assert float(r.feat_conv.w.detach().abs().max()) <= (6 / 3) ** 0.5
+    assert [float(getattr(a.model_base, k).detach()) for k in ("gamma", "beta", "mean", "var")] == \
+        [1, 0, 0, 1]
+
+
+def test_model_raw_ctcnet_save_restore(tmp_path):
+    a = Model("raw-ctcnet", raw_cfg(), device="cpu").init(5)
+    with torch.no_grad():
+        a.model_base.mean.fill_(0.25)
+    a.save(str(tmp_path / "p.pt"))
+    b = Model("raw-ctcnet", raw_cfg(), device="cpu").init(6)
+    b.restore(str(tmp_path / "p.pt"))
+    for (na, pa), (nb, pb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert na == nb and torch.equal(pa, pb)
+
+
+def test_training_raw_ctcnet_raises(tmp_path):
+    m = Model("raw-ctcnet", raw_cfg(), device="cpu").init(0)
+    tx = build_optimizer("adamax", 2e-4)
+    for make in (lambda: make_joint_train_step(m.model_base, m.model_ctc, tx),
+                 lambda: make_eval_step(m.eval_base(), m.model_ctc)):
+        with pytest.raises(NotImplementedError, match="A8"):
+            make()
+    cfg = raw_cfg()
+    cfg["training"] = {"datatype": "raw-gauss", "loss": "ctc", "save_dir": str(tmp_path)}
+    with pytest.raises(NotImplementedError, match="A8"):
+        cli.build_from_config(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        cli.train(cfg, "cpu")
+
+
+def test_init_arguments_default_to_the_old_behaviour():
+    g = torch.Generator().manual_seed(0)
+    blk = ResidualBlock(4, 4, 2, 1, device="cpu")
+    blk.reset_parameters(g)
+    assert not blk.gate_b.any() and not blk.res_b.any()
+    st = SkipSumStack(((4, 4, 2, 1),), 4, device="cpu")
+    st.reset_parameters(g)
+    assert torch.equal(st.bottlenecks[0].w, torch.eye(4)) and not st.bottlenecks[0].b.any()
+    ones = lambda shape, generator=None: torch.ones(shape)
+    st = SkipSumStack(((4, 4, 2, 1),), 4, b_init=ones, bottleneck_w_init=init.zeros,
+                      bottleneck_b_init=ones, device="cpu")
+    st.reset_parameters(g)
+    assert bool((st.blocks[0].gate_b == 1).all()) and not st.bottlenecks[0].w.any()
+    assert bool((st.bottlenecks[0].b == 1).all())
+
+
+def test_hardtanh_and_with_noise():
+    x = np.linspace(-3, 3, 61, dtype=np.float32)
+    np.testing.assert_array_equal(hardtanh(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jhardtanh(jnp.asarray(x))))
+    np.testing.assert_array_equal(hardtanh(torch.from_numpy(x), -0.5, 2.0).numpy(),
+                                  np.asarray(jhardtanh(jnp.asarray(x), -0.5, 2.0)))
+    # the same distribution as JAX's: base + eps N(0, 1)
+    shape = (256, 256)
+    got = init.with_noise(init.eye, 1e-4)(shape, torch.Generator().manual_seed(0)) - \
+        torch.eye(*shape)
+    ref = np.asarray(jinit.with_noise(jinit.eye, 1e-4)(jax.random.PRNGKey(0), shape)) - \
+        np.eye(*shape)
+    for a in (got.numpy(), ref):
+        assert abs(a.mean()) < 2e-6 and abs(a.std() / 1e-4 - 1) < 0.02

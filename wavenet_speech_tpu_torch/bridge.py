@@ -77,16 +77,34 @@ def classifier_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
             **_dense(p["out1"], "out1."), **_dense(p["out2"], "out2.")}
 
 
+def raw_ctcnet_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.RawCTCNet`` from JAX ``RawCTCNet.init`` params
+    (``positions_1x1`` only where the model has positions)."""
+    out = {**_dense(p["feat_conv"], "feat_conv."), **_dense(p["feat_1x1"], "feat_1x1."),
+           **_block(p["input_block"], "input_block."),
+           **_dense(p["input_bottleneck"], "input_bottleneck."),
+           **_stack(p["stack"], "stack."),
+           **_dense(p["out1"], "out1."), **_dense(p["out2"], "out2.")}
+    if "positions_1x1" in p:
+        out.update(_dense(p["positions_1x1"], "positions_1x1."))
+    return out
+
+
 def param_tree_from_jax(tree: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The train step's params tree {"base": WaveNet state dict, "ctc":
-    WaveNetClassifier state dict} from JAX params {"base": ..., "ctc": ...}."""
+    """The train step's params tree {"base": ..., "ctc": ...} from JAX
+    params {"base": ..., "ctc": ...}: WaveNet and WaveNetClassifier state
+    dicts, or for a raw-ctcnet tree (its "ctc" holds ``feat_conv``) the
+    BatchNorm1d's gamma, beta, mean, var and RawCTCNet's state dict."""
+    if "feat_conv" in tree["ctc"]:
+        return {"base": {k: _t(tree["base"][k]) for k in ("gamma", "beta", "mean", "var")},
+                "ctc": raw_ctcnet_from_jax(tree["ctc"])}
     return {"base": wavenet_from_jax(tree["base"]),
             "ctc": classifier_from_jax(tree["ctc"])}
 
 
 def params_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
-    """State dict of ``facade.Model("wavenet-ctc")`` from the JAX facade's
-    params {"base": WaveNet params, "ctc": WaveNetClassifier params}."""
+    """State dict of ``facade.Model`` from the JAX facade's params
+    {"base": ..., "ctc": ...} of either model type."""
     p = param_tree_from_jax(tree)
     return {**{f"model_base.{k}": v for k, v in p["base"].items()},
             **{f"model_ctc.{k}": v for k, v in p["ctc"].items()}}

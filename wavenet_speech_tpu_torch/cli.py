@@ -1,16 +1,30 @@
-"""Config-driven trainer (wavenet_speech_tpu/cli.py):
+"""Config-driven trainer and basecaller (wavenet_speech_tpu/cli.py):
 
     python -m wavenet_speech_tpu_torch.cli train cfg.json [--device cpu]
+    python -m wavenet_speech_tpu_torch.cli basecall cfg.json --signals sig.npy
+        [--out calls.fasta] [--long] [--device cpu]
 
 The training loop follows the JAX CLI's: fixed or fresh validation batches
 re-scored at every print, a moving-average train loss, samples/s, early stop
 on the validation loss, periodic checkpoints (optionally written on a
 thread), resume from the latest checkpoint of the run directory, and a save
-on exit. The run goes to ``cuda`` unless ``--device`` names another device
-(``--device cpu`` runs the kernels' plain versions).
+on exit. ``basecall`` restores the run's latest checkpoint and writes FASTA;
+reads above 65,536 samples (or all reads, with ``--long``) go through the
+chunked forwards and the streaming beam. The commands run on ``cuda``
+unless ``--device`` names another device (``--device cpu`` runs the
+kernels' plain versions).
 
-Not ported yet: the ``evaluate`` and ``basecall`` commands, and every
-datatype but ``pore`` (ROADMAP A9, A10).
+Where ``basecall`` differs from the JAX CLI: on the long path the JAX CLI
+wraps the model in an object without its receptive field (cli.py:413-416),
+so its chunks are stitched with margin 0 and frames at chunk boundaries
+differ from the monolithic forward; here the Basecaller gets the model
+itself, whose margin makes the stitched logits equal the monolithic
+forward's, as JAX's ``chunked_logits`` documents. A pooled wavenet-ctc
+head cannot be chunked (the grid counts samples) and is refused up front,
+where the JAX package fails its stitching check.
+
+Not ported yet: the ``evaluate`` command, training raw-ctcnet, and every
+datatype but ``pore`` (ROADMAP A8-A10).
 """
 from __future__ import annotations
 
@@ -24,9 +38,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wavenet_speech_tpu_torch.data.common import Batch
+from wavenet_speech_tpu_torch.data.common import Batch, MuLawQuantizer, one_hot_lc
 from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
 from wavenet_speech_tpu_torch.facade import Dataset, Model
+from wavenet_speech_tpu_torch.inference import Basecaller
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
                                                make_lr_schedule)
@@ -67,18 +82,15 @@ def _arm_watchdog():
         _progress["armed"] = True
 
 
-def _logit_length_fn(cfg):
-    """True signal lengths -> per-sequence logit lengths of the classifier
-    (its average pool divides the length)."""
-    pool = cfg.get("model", {}).get("classifier", {}).get("downsample", 1)
-    return lambda sl: sl // pool
-
-
 def build_from_config(cfg, device=None):
     """(dataset, model, state, (step, xe_step, xe_iters, multi_step, K),
     eval_step, training block) of a config, as the JAX CLI builds them
     (cli.py:64-142). The model is on ``device`` (default ``cuda``)."""
     t = training_cfg(cfg)
+    if cfg.get("model", {}).get("type", "wavenet-ctc") == "raw-ctcnet":
+        raise NotImplementedError(
+            "training raw-ctcnet is not ported yet (ROADMAP A8: BatchNorm1d.update_state, "
+            "make_ctc_train_step, the raw-gauss data of A9); basecall serves it")
     datatype = t.get("datatype", "pore" if t["training_data"] is None else "hdf5")
     dataset = Dataset(
         datatype, dataset=t["training_data"],
@@ -104,7 +116,7 @@ def build_from_config(cfg, device=None):
     compute_dtype = None
     if str(t.get("compute_dtype", "")).lower() in ("bf16", "bfloat16"):
         compute_dtype = torch.bfloat16
-    logit_length_fn = _logit_length_fn(cfg) if t.get("length_aware_ctc") else None
+    logit_length_fn = model.output_length if t.get("length_aware_ctc") else None
     kw = dict(compute_dtype=compute_dtype, logit_length_fn=logit_length_fn)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, loss, **kw)
     # steps_per_call > 1: K stacked batches a call (trainer steps_per_call)
@@ -221,18 +233,88 @@ def train_with_result(cfg, device=None) -> dict:
             "train_loss": meter.value, "steps": step_idx}
 
 
+LONG_READ_SAMPLES = 65536  # reads longer than this take the long path
+
+
+def load_signals(path: str, cfg, model_type: str) -> np.ndarray:
+    """The ``signal`` array of an NPY/NPZ file as (B, L, C) float32, in the
+    JAX CLI's three forms (cli.py:395-411): (B, L) integer levels one-hot
+    to the model's signal_dim; (B, L) raw floats into a wavenet-ctc model
+    mu-law quantized and one-hot, as its training data is; other (B, L)
+    raw floats as (B, L, 1); (B, L, C) as it is."""
+    data = np.load(path)
+    sig = data["signal"] if hasattr(data, "files") else data
+    C = cfg.get("model", {}).get("base", {}).get("signal_dim", 256)
+    if sig.ndim == 2 and np.issubdtype(sig.dtype, np.integer):
+        return np.eye(C, dtype=np.float32)[sig]
+    if sig.ndim == 2 and model_type == "wavenet-ctc":
+        q = MuLawQuantizer(C)
+        return np.stack([one_hot_lc(q(s), C) for s in sig.astype(np.float64)])
+    if sig.ndim == 2:
+        return sig.astype(np.float32)[..., None]
+    return sig.astype(np.float32)
+
+
+def basecall(cfg, signals_path: str, out_path: Optional[str] = None,
+             long_reads: bool = False, device=None) -> int:
+    """Basecall the signals of an NPY/NPZ file with the run's latest
+    checkpoint and write FASTA (``>read_i score=...`` lines) to out_path or
+    stdout (cli.py:366-442). Reads above LONG_READ_SAMPLES samples, or all
+    with long_reads, go through ``Basecaller.basecall_long_batch``."""
+    t = training_cfg(cfg)
+    model_type = cfg.get("model", {}).get("type", "wavenet-ctc")
+    model = Model(model_type, cfg, device=device).init(t.get("seed") or 0)
+    opt = t["optim"]
+    tx = build_optimizer(opt["type"], opt["learning_rate"],
+                         weight_decay=opt.get("wd") or None,
+                         max_grad_norm=opt.get("max_grad_norm"))
+    ckpt = t.get("restore") or f"{t['save_dir'].rstrip('/')}/ckpts/"
+    state = restore_checkpoint(ckpt, TrainState.create(model.params(), tx))
+    model.load_params(state.params)
+
+    sig = load_signals(signals_path, cfg, model_type)
+    caller = Basecaller(model, beam_width=t.get("beam_width", 7),
+                        cutoff_top_n=t.get("cutoff_top_n"),
+                        logit_length_fn=model.output_length, device=model.device)
+    if long_reads or sig.shape[1] > LONG_READ_SAMPLES:
+        seqs, scores = caller.basecall_long_batch(sig)
+        if caller.saturated_chunks:
+            print(f"[basecall] streaming beam window saturated in {caller.saturated_chunks} "
+                  f"(chunk, read) pairs: those reads are length-capped", file=sys.stderr)
+    else:
+        seqs, scores = caller(sig)
+    text = "".join(f">read_{i} score={sc:.3f}\n{s}\n"
+                   for i, (s, sc) in enumerate(zip(seqs, scores)))
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(text)
+    else:
+        print(text, end="")
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m wavenet_speech_tpu_torch.cli",
-        description="WaveNet-CTC trainer, PyTorch/CUDA port")
-    ap.add_argument("command", choices=["train"])
+        description="WaveNet-CTC trainer and basecaller, PyTorch/CUDA port")
+    ap.add_argument("command", choices=["train", "basecall"])
     ap.add_argument("config", help="path to JSON config")
+    ap.add_argument("--signals", default=None, help="basecall: NPY/NPZ file of signals")
+    ap.add_argument("--out", default=None, help="basecall: output FASTA path (default stdout)")
+    ap.add_argument("--long", action="store_true",
+                    help="basecall: force the long-read path (chunked forwards + "
+                         f"streaming beam); automatic above {LONG_READ_SAMPLES} samples")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    cfg = json_to_config(args.config)
+    if args.command == "basecall":
+        if not args.signals:
+            ap.error("basecall needs --signals")
+        return basecall(cfg, args.signals, args.out, args.long, args.device)
     _arm_watchdog()
-    return train(json_to_config(args.config), args.device)
+    return train(cfg, args.device)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ datatype-dispatching dataset.
     batch = data.fetch("train")                            # data.Batch, numpy
 
 ``Model`` runs on ``cuda`` unless ``device`` is given, and raises when no
-CUDA device is present and none was given. ``BatchNorm1d`` and ``Decoder``
-of the JAX facade, and every ``Dataset`` datatype but ``pore``, are not
-ported yet (ROADMAP A8-A10).
+CUDA device is present and none was given. ``Model("raw-ctcnet")`` serves:
+``BatchNorm1d`` normalizes with its running statistics, then RawCTCNet;
+training it (``BatchNorm1d.update_state``, the CTC-only step) is not ported
+yet (ROADMAP A8). ``Decoder`` of the JAX facade, and every ``Dataset``
+datatype but ``pore``, are not ported yet (ROADMAP A9, A10).
 """
 from __future__ import annotations
 
@@ -21,39 +23,106 @@ from torch import nn
 from wavenet_speech_tpu_torch.bridge import params_from_jax
 from wavenet_speech_tpu_torch.data.common import Batch
 from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModelLoader
-from wavenet_speech_tpu_torch.models import WaveNet, WaveNetClassifier
+from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, WaveNetClassifier
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
 from wavenet_speech_tpu_torch.training.trainer import param_tree
-from wavenet_speech_tpu_torch.utils.config import base_model_cfg, classifier_cfg
+from wavenet_speech_tpu_torch.utils.config import (base_model_cfg, classifier_cfg,
+                                                   raw_ctcnet_cfg)
 from wavenet_speech_tpu_torch.utils.device import resolve_device
 
 
+class BatchNorm1d(nn.Module):
+    """Batch normalization over (batch, time) of raw signals, the base model
+    of the raw-ctcnet pair (facade.py:36-80), in its eval form only
+    (``use_running=True``): normalized with the running mean and variance.
+    gamma, beta, mean and var are all parameters, as they are leaves of the
+    JAX params tree. The training form (batch statistics) and
+    ``update_state``, its running-statistics EMA, are not ported yet
+    (ROADMAP A8): the train and eval steps refuse a model that carries
+    ``not_trainable``."""
+
+    not_trainable = ("training raw-ctcnet is not ported yet (ROADMAP A8: BatchNorm1d's "
+                     "training form and update_state, ops/norm.py, make_ctc_train_step); "
+                     "the port serves it")
+
+    def __init__(self, num_features: int = 1, eps: float = 1e-5, *, device=None):
+        super().__init__()
+        self.eps = eps
+        for name in ("gamma", "beta", "mean", "var"):
+            self.register_parameter(name, nn.Parameter(
+                torch.empty((num_features,), device=device)))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            for p, v in ((self.gamma, 1.0), (self.beta, 0.0), (self.mean, 0.0),
+                         (self.var, 1.0)):
+                p.fill_(v)
+
+    def forward(self, x):
+        return self.gamma * (x - self.mean) * torch.rsqrt(self.var + self.eps) + self.beta
+
+    def update_state(self, *args, **kwargs):
+        raise NotImplementedError(self.not_trainable)
+
+
 class Model(nn.Module):
-    """WaveNet (``model_base``) followed by the WaveNetClassifier CTC head
-    (``model_ctc``), built from a config dict as in the JAX facade. The
-    config's ``use_pallas`` and ``remat`` keys do not apply: causal blocks
-    always run the fused block, which is its kernel on the card."""
+    """A base + CTC model pair built from a config dict as in the JAX
+    facade: "wavenet-ctc" is WaveNet (``model_base``) followed by the
+    WaveNetClassifier CTC head (``model_ctc``); "raw-ctcnet" is BatchNorm1d
+    followed by RawCTCNet, with the JAX facade's defaults (facade.py:101-116:
+    2048 features, kernel 3, dilations 1..64 x 20). The config's
+    ``use_pallas`` and ``remat`` keys do not apply: causal blocks always run
+    the fused block, which is its kernel on the card.
+
+    The chunked forwards of ``inference`` read the model's ``layers``,
+    ``entry_kwidth`` / ``feature_kwidth`` and ``output_length``: those of
+    the whole pair (BatchNorm is pointwise; a pooled classifier's
+    output_length is L // pool, which the chunk grid refuses)."""
 
     def __init__(self, model_type: str = "wavenet-ctc",
                  cfg: Optional[Dict[str, Any]] = None, *, device=None):
         super().__init__()
-        if model_type == "raw-ctcnet":
-            raise NotImplementedError(
-                "raw-ctcnet is not ported yet (ROADMAP A8: RawCTCNet, "
-                "BatchNorm1d and the CTC-only step)")
-        if model_type != "wavenet-ctc":
+        if model_type not in ("wavenet-ctc", "raw-ctcnet"):
             raise ValueError(f"unknown model_type {model_type!r}")
         self.model_type = model_type
         self.device = resolve_device(device)
         cfg = cfg or {}
-        b, c = base_model_cfg(cfg), classifier_cfg(cfg)
-        self.model_base = WaveNet(b["signal_dim"], b["entry_kwidth"],
-                                  b["layers"], b["out_dim"], softmax=False,
-                                  device=self.device)
-        self.model_ctc = WaveNetClassifier(c["in_dim"], c["num_labels"],
-                                           c["layers"], c["out_dim"],
-                                           pool_kernel_size=c["downsample"],
-                                           softmax=False, device=self.device)
+        if model_type == "raw-ctcnet":
+            r = raw_ctcnet_cfg(cfg)
+            self.model_base = BatchNorm1d(1, device=self.device)
+            self.model_ctc = RawCTCNet(r["num_features"], r["feature_kwidth"],
+                                       r["num_labels"], r["layers"], r["out_dim"],
+                                       softmax=False, causal=r["causal"],
+                                       device=self.device)
+            self.feature_kwidth = r["feature_kwidth"]
+        else:
+            b, c = base_model_cfg(cfg), classifier_cfg(cfg)
+            self.model_base = WaveNet(b["signal_dim"], b["entry_kwidth"],
+                                      b["layers"], b["out_dim"], softmax=False,
+                                      device=self.device)
+            self.model_ctc = WaveNetClassifier(c["in_dim"], c["num_labels"],
+                                               c["layers"], c["out_dim"],
+                                               pool_kernel_size=c["downsample"],
+                                               softmax=False, device=self.device)
+            self.entry_kwidth = b["entry_kwidth"]
+
+    @property
+    def layers(self):
+        """The dilated convs the chunk margin counts, as (c_in, c_out, kernel,
+        dilation): RawCTCNet's stack (as JAX's _default_margin reads it), or
+        WaveNet's blocks, the classifier's input block and its blocks."""
+        if self.model_type == "raw-ctcnet":
+            return self.model_ctc.layers
+        blk = self.model_ctc.input_block
+        return self.model_base.layers + ((blk.in_channels, blk.out_channels,
+                                          blk.kernel_width, blk.dilation),) + \
+            self.model_ctc.layers
+
+    def output_length(self, L):
+        """Logit frames of a signal of L samples."""
+        if self.model_type == "raw-ctcnet":
+            return self.model_ctc.output_length(L)
+        return L // self.model_ctc.pool_kernel_size
 
     def init(self, seed: Union[int, torch.Generator] = 0) -> "Model":
         """Fresh weights from the port's initialisers on a seeded CPU
@@ -71,9 +140,8 @@ class Model(nn.Module):
         return self
 
     def eval_base(self) -> nn.Module:
-        """The base model in eval mode. WaveNet holds no running statistics,
-        so it is ``model_base`` itself (the JAX facade differs only for
-        raw-ctcnet's BatchNorm, not ported)."""
+        """The base model in eval mode: ``model_base`` itself (BatchNorm1d
+        has only its eval form; WaveNet holds no statistics)."""
         return self.model_base
 
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -93,17 +161,24 @@ class Model(nn.Module):
         params = restore_params(path, self.params() if params_like is None
                                 else params_like)
         if params_like is None:
-            self.model_base.load_state_dict(params["base"])
-            self.model_ctc.load_state_dict(params["ctc"])
+            self.load_params(params)
         return params
 
+    def load_params(self, params) -> "Model":
+        """Load a params tree {"base", "ctc"} (``params()``'s layout), as
+        a train state holds it. Returns self."""
+        self.model_base.load_state_dict(params["base"])
+        self.model_ctc.load_state_dict(params["ctc"])
+        return self
+
     def predict(self, signal: torch.Tensor):
-        """signal (B, L, signal_dim) -> (base_out, logits)."""
+        """signal (B, L, signal_dim) -> (base_out, logits), the base in its
+        eval form (running-statistics BatchNorm for raw-ctcnet)."""
         base_out = self.model_base(signal)
         return base_out, self.model_ctc(base_out)
 
     def forward(self, signal: torch.Tensor) -> torch.Tensor:
-        """The CTC logits (B, L // downsample, num_labels)."""
+        """The CTC logits (B, output_length(L), num_labels)."""
         return self.predict(signal)[1]
 
 

@@ -25,7 +25,7 @@ path at the cost of (K-1)*d extra frames a block.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -39,11 +39,13 @@ from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_width: int,
-                 dilation: int, causal: bool = True, *, device=None):
+                 dilation: int, causal: bool = True, *,
+                 b_init: Callable = init.zeros, device=None):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_width, self.dilation, self.causal = (kernel_width,
                                                          dilation, causal)
+        self.b_init = b_init
         C_in, C, K = in_channels, out_channels, kernel_width
 
         def param(*shape):
@@ -61,13 +63,14 @@ class ResidualBlock(nn.Module):
         return receptive_field(self.kernel_width, self.dilation)
 
     def reset_parameters(self, generator: Optional[torch.Generator]):
-        """Kaiming-uniform weights and zero biases, in the order of the JAX
-        init (the numbers differ: torch and JAX generators differ)."""
+        """Kaiming-uniform weights and ``b_init`` biases (zeros unless
+        given), in the order of the JAX init (the numbers differ: torch and
+        JAX generators differ)."""
         with torch.no_grad():
             for w, b in ((self.gate_w, self.gate_b), (self.out_w, self.out_b),
                          (self.res_w, self.res_b)):
                 w.copy_(init.kaiming_uniform(tuple(w.shape), generator))
-                b.copy_(init.zeros(tuple(b.shape)))
+                b.copy_(self.b_init(tuple(b.shape), generator))
 
     def forward(self, x):
         """x (B, L, C_in) -> (residual_out, skip_out), each (B, L, C)."""

@@ -10,7 +10,7 @@ backward kernel recomputes the gate, which is that remat inside the block.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -26,18 +26,25 @@ class SkipSumStack(nn.Module):
     """Residual blocks in sequence; each block's skip output passes through
     its own eye-initialised 1x1 bottleneck to out_dim, and those are summed.
 
-    forward(x, skips0=None) -> (residual_out, skips_sum)"""
+    forward(x, skips0=None) -> (residual_out, skips_sum)
+
+    b_init (the blocks' biases), bottleneck_w_init and bottleneck_b_init
+    are the JAX stack's init arguments (stack.py:49-58); RawCTCNet gives
+    them noise."""
 
     def __init__(self, layers: Sequence[LayerSpec], out_dim: int,
-                 causal: bool = True, *, device=None):
+                 causal: bool = True, *, b_init: Callable = init.zeros,
+                 bottleneck_w_init: Callable = init.eye,
+                 bottleneck_b_init: Callable = init.zeros, device=None):
         super().__init__()
         self.layers = tuple(tuple(l) for l in layers)
         self.out_dim = out_dim
         self.blocks = nn.ModuleList(
-            ResidualBlock(c_in, c_out, k, d, causal, device=device)
+            ResidualBlock(c_in, c_out, k, d, causal, b_init=b_init, device=device)
             for (c_in, c_out, k, d) in self.layers)
         self.bottlenecks = nn.ModuleList(
-            Dense(c_out, out_dim, w_init=init.eye, device=device)
+            Dense(c_out, out_dim, w_init=bottleneck_w_init, b_init=bottleneck_b_init,
+                  device=device)
             for (_, c_out, _, _) in self.layers)
 
     @property

@@ -32,9 +32,12 @@ class WaveNet(nn.Module):
         self.out2 = Conv1x1(out_dim, out_dim, device=device)
 
     @property
+    def entry_kwidth(self) -> int:
+        return self.entry.w.shape[0]
+
+    @property
     def receptive_field(self) -> int:
-        return self.entry.w.shape[0] + sum((k - 1) * d
-                                           for (_, _, k, d) in self.layers)
+        return self.entry_kwidth + sum((k - 1) * d for (_, _, k, d) in self.layers)
 
     def reset_parameters(self, generator: Optional[torch.Generator]):
         for m in (self.entry, self.stack, self.out1, self.out2):

@@ -51,3 +51,13 @@ def eye(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tens
 def zeros(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     del generator
     return torch.zeros(shape)
+
+
+def with_noise(base_init, eps: float):
+    """base_init plus eps * N(0, 1) noise, drawn from the same generator
+    (the RawCTCNet init: eye or zeros + 1e-4 noise)."""
+
+    def init(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return base_init(shape, generator) + eps * torch.randn(shape, generator=generator)
+
+    return init

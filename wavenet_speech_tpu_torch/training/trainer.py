@@ -31,7 +31,9 @@ buffer) before the skip guard, so the guard, the norm and the optimizer
 run on the same values on every rank: all ranks skip together and their
 params stay identical.
 
-Not ported yet: ``make_ctc_train_step`` (with RawCTCNet, ROADMAP A8),
+Not ported yet: training RawCTCNet (``make_ctc_train_step``, BatchNorm's
+``update_state``, ROADMAP A8: both steps refuse a module that carries
+``not_trainable``, as the raw-ctcnet pair's BatchNorm1d does),
 tensor parallelism (a mesh whose "model" axis is > 1 raises), and the JAX
 options ``donate`` and ``scan_unroll``, which have no meaning in an eager
 loop.
@@ -109,6 +111,15 @@ def _cast(tree, dtype):
     if dtype is None:
         return tree
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def _check_trainable(*models: nn.Module) -> None:
+    """Refuse a model whose training is not ported (its ``not_trainable``
+    says why)."""
+    for m in models:
+        why = getattr(m, "not_trainable", None)
+        if why:
+            raise NotImplementedError(why)
 
 
 def _check_mesh(mesh: Optional[Mesh]) -> None:
@@ -191,6 +202,7 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
 
     Returns step_fn(state, batch) -> (state, metrics)."""
     loss = loss or JointLoss("joint")
+    _check_trainable(base_model, ctc_model)
     _check_mesh(mesh)
 
     def step_fn(state: TrainState, batch) -> tuple:
@@ -240,6 +252,7 @@ def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
     mesh, on this rank's shard, the global metrics on every rank. Returns
     eval_fn(params, batch) -> metrics."""
     loss = loss or JointLoss("joint")
+    _check_trainable(base_model, ctc_model)
     _check_mesh(mesh)
 
     def eval_fn(params, batch) -> Metrics:

@@ -57,6 +57,20 @@ def classifier_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def raw_ctcnet_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The "raw" model block with the JAX facade's defaults
+    (facade.py:101-116, the reference's intended Model.py:41-53): 2048
+    features, fk 3, 5 labels, dilations 1..64 x 20 cycles, kernel 3, out 512."""
+    m = cfg.get("model", {}).get("raw", {})
+    nfeats = m.get("num_features", 2048)
+    kernel = m.get("kernel", 3)
+    dils = tuple(m.get("dilations", [1, 2, 4, 8, 16, 32, 64]))
+    layers = tuple((nfeats, nfeats, kernel, d) for d in dils) * m.get("num_dilation_blocks", 20)
+    return {"num_features": nfeats, "feature_kwidth": m.get("feature_kwidth", 3),
+            "num_labels": m.get("num_labels", 5), "layers": layers,
+            "out_dim": m.get("out_dim", 512), "causal": bool(m.get("causal", False))}
+
+
 def training_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The "training" block with the JAX package's defaults
     (utils/config.py:58-78)."""
