@@ -104,6 +104,25 @@ from a seed; B=8 one-hot reads of L=4505):
      version; (f) the long call's time, reads/s and samples/s, the chunked
      forwards', B6's a chunk call and a frame, the input trie's, the
      commit's, and the peak memory.
+ 10. trains and scores configs/gauss_quality.json's RawCTCNet at full width
+     (512 features, 25 + 1 non-causal blocks; raw-gauss data, B=6, signals
+     padded to 486 samples, 488 logit frames, labels to 89; Adamax 2e-4,
+     CTC loss, float32). (a) the main path: cli.train_with_result for 20
+     steps, then resumed on the same run directory to 40: logs,
+     checkpoints, finite losses, and B1 once a train step and a validation
+     forward, B2 once a train step, no block kernel; (b) the checkpoint's
+     BatchNorm mean and var against the EMA recomputed in float64 from the
+     stream rebuilt from the seed; (c) B1 and B2 at this shape (J=179, one
+     block a sequence) against their plain loops on the real step's inputs;
+     (d) make_ctc_train_step with preprocess=batch_standardize, 3 steps on
+     the kernels against 3 on the plain CTC (res_w scaled as in 4), held to
+     the gap between two plain runs, and a small model's steps against the
+     CPU's; (e) the evaluate command on (a)'s run, decoder beam (B6 once a
+     batch) and argmax: the printed loss equal to the eval step on the same
+     held-out batches, the identity to that of beam_search_ref's decode, to
+     which B6 is held row for row; (f) the train step's and eval step's ms,
+     the loop's samples/s, the decode's ms a batch, B1/B2/B6 against their
+     bounds, and the peak memory.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -114,6 +133,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
+import io
 import json
 import math
 import re
@@ -133,14 +154,15 @@ import torch.nn.functional as F
 from wavenet_speech_tpu_torch import cli
 from wavenet_speech_tpu_torch.data.prefetch import batch_to_device
 from wavenet_speech_tpu_torch.decoding import ctc_beam_device, streaming
+from wavenet_speech_tpu_torch.decoding.alignment import batch_identity
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_init, beam_search_kernel, beam_search_ref, ctc_beam_search)
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
 from wavenet_speech_tpu_torch.decoding.streaming import StreamingBeamBatch
-from wavenet_speech_tpu_torch.facade import Model
+from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
 from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _default_margin,
                                                 chunked_logits, chunked_logits_batch)
-from wavenet_speech_tpu_torch.models import blocks
+from wavenet_speech_tpu_torch.models import RawCTCNet, blocks
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
@@ -150,16 +172,18 @@ from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
+from wavenet_speech_tpu_torch.ops.norm import batch_standardize
 from wavenet_speech_tpu_torch.parallel import (collectives, ctc_sharded, make_mesh,
                                                run_ranks, shard_batch)
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
                                                param_tree, trainer)
-from wavenet_speech_tpu_torch.training.checkpoint import (save_checkpoint,
+from wavenet_speech_tpu_torch.training.checkpoint import (restore_checkpoint, save_checkpoint,
                                                           wait_for_async_saves)
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
-                                                       all_reduce_grads, global_norm_safe)
-from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map
+                                                       all_reduce_grads, global_norm_safe,
+                                                       make_ctc_train_step)
+from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 SEED = 0
 B, L = 8, 4505                       # bench.py:105-149 batch and read length
@@ -497,6 +521,18 @@ def beam_chained(lp, lengths, S, one):
     return end_ms
 
 
+def b6_work(lp, lengths, S):
+    """B6's operations and bytes on lp (B, T, C) with these lengths: the
+    live frames' candidates scored and selected; the log-probs read once,
+    the final state written once."""
+    Bx, T, C = lp.shape
+    N = BEAM_WIDTH * (1 + C)  # candidates a frame scores
+    frames = int(lengths.clamp(max=T).sum())
+    ops = frames * N * (4 + math.ceil(math.log2(N)))  # logaddexp + a selection
+    nbytes = 4 * (Bx * T * C + Bx + 2 * Bx * BEAM_WIDTH * S + 3 * Bx * BEAM_WIDTH)
+    return ops, nbytes
+
+
 def phase_beam(lp, lengths, S):
     """B6 against its plain version on the real forward's log-probs."""
     kw = dict(beam_width=BEAM_WIDTH, max_label_len=S)
@@ -505,12 +541,7 @@ def phase_beam(lp, lengths, S):
     plain_ms, want = host_ms(lambda: beam_finalize(beam_search_ref(lp, lengths, **kw)))
     live, err = compare_beams(got, want, BEAM_WIDTH)
     ms = cuda_ms(lambda: beam_search_kernel(lp, lengths, **kw), 5)
-    Bx, T, C = lp.shape
-    N = BEAM_WIDTH * (1 + C)  # candidates a frame scores
-    frames = int(lengths.clamp(max=T).sum())
-    ops = frames * N * (4 + math.ceil(math.log2(N)))  # logaddexp + a selection
-    nbytes = 4 * (Bx * T * C + Bx + 2 * Bx * BEAM_WIDTH * S + 3 * Bx * BEAM_WIDTH)
-    bound_ms, bound_by = bound_of(ops, nbytes)
+    bound_ms, bound_by = bound_of(*b6_work(lp, lengths, S))
     us = beam_us_per_frame(lp, lengths, S)
     end_ms = beam_chained(lp, lengths, S, state)
     log(f"B6 ctc_beam: {live} live beam rows equal (prefixes, lengths, times), "
@@ -1872,18 +1903,23 @@ JAX_HEAD_BIAS = (0.6, 0.9, -0.3, 0.1, -0.7)
 LONG_HEAD_BIAS = (JAX_HEAD_BIAS[0] + 2.0, *JAX_HEAD_BIAS[1:])
 
 
-def long_read_model(dev):
+def gauss_model(dev):
     """configs/gauss_quality.json's RawCTCNet at full width from the seed,
-    res_w scaled by 1/sqrt(2) (phase 4), and the head biased toward blank
-    (LONG_HEAD_BIAS), which also parts the eye-init net's near-tied
-    labels."""
+    res_w scaled by 1/sqrt(2) (phase 4)."""
     cfg = json.loads(LONG_CONFIG.read_text())
     model = Model("raw-ctcnet", cfg, device=dev).init(SEED)
-    net = model.model_ctc
     with torch.no_grad():
-        for blk in [net.input_block, *net.stack.blocks]:
+        for blk in [model.model_ctc.input_block, *model.model_ctc.stack.blocks]:
             blk.res_w.mul_(0.5 ** 0.5)
-        net.out2.b.add_(torch.tensor(LONG_HEAD_BIAS, device=dev))
+    return cfg, model
+
+
+def long_read_model(dev):
+    """gauss_model with the head biased toward blank (LONG_HEAD_BIAS),
+    which also parts the eye-init net's near-tied labels."""
+    cfg, model = gauss_model(dev)
+    with torch.no_grad():
+        model.model_ctc.out2.b.add_(torch.tensor(LONG_HEAD_BIAS, device=dev))
     return cfg, model
 
 
@@ -2207,6 +2243,402 @@ def run_long_read(dev, card):
     return dict(b6_launches=launches["ctc_beam"], b4_launches=e["launches"])
 
 
+# ---- 10. RawCTCNet training and evaluation -------------------------------------
+
+# configs/gauss_quality.json as it stands (512 features, 25 + 1 non-causal
+# blocks, raw-gauss B=6 at 6 samples a base, Adamax 2e-4, CTC loss), cut to
+# 20 steps a run and 5 held-out batches an evaluate
+GAUSS_STEPS, GAUSS_PRINT, GAUSS_EVAL_BATCHES = 20, 10, 5
+GAUSS_LR = 2e-4
+# the running statistics in the checkpoint against the EMA recomputed in
+# float64 from the batches the loop was fed: float32 means over B x L
+# samples and 40 float32 EMA steps
+BN_RTOL = 1e-5
+# the printed loss (4 decimals) against the eval step recomputed
+EVAL_LOSS_ATOL = 5e-5
+
+
+def gauss_cfg(run_dir):
+    cfg = json.loads(LONG_CONFIG.read_text())
+    cfg["training"].update(save_dir=str(run_dir), max_iters=GAUSS_STEPS,
+                           print_every=GAUSS_PRINT, save_every=GAUSS_PRINT,
+                           eval_batches=GAUSS_EVAL_BATCHES, beam_width=BEAM_WIDTH)
+    return cfg
+
+
+def gauss_train_runs(cfg, run_dir, dev):
+    """(a) cli.train_with_result twice on one run directory: 20 steps, then
+    resumed at 20 to 40. Each train step launches B1 and B2 once, each
+    validation forward B1 once, no block kernel. Returns the first run's
+    launches and its loop samples/s."""
+    counts, rates = None, []
+    for run, (start, end) in enumerate(((0, GAUSS_STEPS), (GAUSS_STEPS, 2 * GAUSS_STEPS)), 1):
+        logged = len(read_jsonl(run_dir / "logs" / "metrics.jsonl")) if run > 1 else 0
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli.train_with_result(copy.deepcopy(cfg), dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run_counts = {k: v for k, v in read_counts().items() if v}
+        counts = counts or run_counts
+        lines = read_jsonl(run_dir / "logs" / "metrics.jsonl")[logged:]
+        steps, valid = end - start, len(lines)
+        messages = (run_dir / "logs" / "messages.log").read_text()
+        ckpts = sorted(int(p.name) for p in (run_dir / "ckpts").iterdir() if p.name.isdigit())
+        want = {"ctc_alpha": steps + valid, "ctc_beta": steps}
+        losses = [v for l in lines for v in (l["train_loss"], l["valid_loss"])]
+        problems = [what for what, bad in (
+            (f"steps {result['steps']} != {end}", result["steps"] != end),
+            (f"launches {run_counts} != {want}", run_counts != want),
+            (f"non-finite losses {losses}", not all(map(math.isfinite, losses))),
+            (f"{valid} log lines", valid != steps // GAUSS_PRINT),
+            (f"checkpoints {ckpts}", ckpts != list(range(GAUSS_PRINT, end + 1, GAUSS_PRINT))),
+            ("no training.log", not (run_dir / "logs" / "training.log").is_file()),
+            (f"did not resume at step {GAUSS_STEPS}", run > 1 and
+             f"resumed from {run_dir}/ckpts/ @ step {GAUSS_STEPS}" not in messages))
+            if bad]
+        if problems:
+            raise AssertionError(f"(a) train, run {run}: " + "; ".join(problems))
+        rates.append(lines[-1]["samples_per_sec"])
+        log(f"(a) train run {run}: steps {start + 1}-{end} in {secs:.1f} s (model build and "
+            f"first-step set-up included); loop samples_per_s {rates[-1]:.0f} (between the "
+            f"prints at steps {end - GAUSS_PRINT} and {end}); losses "
+            + ", ".join(f"step {l['step']} train {l['train_loss']:.4f} valid "
+                        f"{l['valid_loss']:.4f}" for l in lines)
+            + f"; launches {run_counts}; checkpoints {ckpts}")
+    return counts, rates
+
+
+def check_running_stats(cfg, state):
+    """(b) The checkpoint's BatchNorm mean and var against the EMA
+    (momentum 0.1, unbiased batch variance) recomputed in float64 from the
+    training stream rebuilt from the seed: each run restarts it, as the JAX
+    CLI's does, so the 40 steps took its first 20 batches twice."""
+    mean, var = np.zeros(1), np.ones(1)
+    for _ in range(2):
+        ds = cli.build_dataset(cfg)
+        for _ in range(GAUSS_STEPS):
+            x = ds.fetch("train").signal.astype(np.float64)
+            n = x.shape[0] * x.shape[1]
+            mean = 0.9 * mean + 0.1 * x.mean(axis=(0, 1))
+            var = 0.9 * var + 0.1 * x.var(axis=(0, 1)) * n / (n - 1)
+    base = state.params["base"]
+    got = np.array([float(base["mean"]), float(base["var"])])
+    want = np.array([mean[0], var[0]])
+    rel = np.abs(got - want) / np.abs(want)
+    log(f"(b) running statistics after {2 * GAUSS_STEPS} steps: mean {got[0]:.6f}, var "
+        f"{got[1]:.6f}; the float64 EMA over the rebuilt stream {want[0]:.6f}, {want[1]:.6f} "
+        f"(relative error {rel.max():.2e}, bound {BN_RTOL})")
+    if not (rel <= BN_RTOL).all():
+        raise AssertionError("(b) BatchNorm's running statistics differ from the EMA")
+
+
+def gauss_step_inputs(model, state, batch):
+    """(c) What the real step feeds B1 and B2: the train-form forward's
+    logits, extended log-probs and skip mask."""
+    p = state.params
+    with torch.no_grad():
+        base = torch.func.functional_call(model.model_base, p["base"], (batch["signal"],))
+        logits = torch.func.functional_call(model.model_ctc, p["ctc"], (base,))
+    ext, allow = _extend_labels(batch["labels"], 0)
+    lp_ext = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous()
+    return logits, lp_ext, torch.where(allow, 0.0, NEG)
+
+
+def ctc_step_run(net, params, batch, plain):
+    """3 steps of make_ctc_train_step (preprocess=batch_standardize, Adamax)
+    from params; plain routes the CTC through B1's and B2's plain loops.
+    Returns (state, the first step's launches)."""
+    tx = build_optimizer("adamax", GAUSS_LR)
+    step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
+    state = TrainState.create(params, tx)
+    with (ctc_plain() if plain else contextlib.nullcontext()):
+        state, hist, launches = train_steps(step, state, batch,
+                                            None if plain else {"ctc_alpha": 1, "ctc_beta": 1})
+    if plain and launches:
+        raise AssertionError(f"(d) the plain CTC steps launched {launches}")
+    return state, hist, launches
+
+
+def phase_ctc_step(dev, batch):
+    """(d) make_ctc_train_step at full width, res_w scaled as in phase 4: 3
+    steps on B1/B2, and twice 3 steps on their plain loops. The steps differ
+    only in the CTC, whose kernels match the plain loops, so the kernel
+    steps' params lie within STEP_PARAM_RTOL of the plain steps', and their
+    updates within SENS_FACTOR x the gap between the two plain runs (cuDNN's
+    backward may sum in another order from one call to the next), or
+    STEP_PARAM_RTOL where the plain runs agree to the bit. The params alone
+    cannot show a B2 that scales every gradient by one constant (Adamax's
+    updates are lr * sign(g) at first, then ratios the scale cancels from),
+    so Adamax's first moment mu, linear in the gradients, is held to the
+    plain steps' within STEP_PARAM_RTOL, or SENS_FACTOR x the plain runs'
+    gap where that is larger. Then a small model's 3 steps on the card
+    against the CPU's."""
+    _, model = gauss_model(dev)
+    net = model.model_ctc
+    p0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    kstate, khist, launches = ctc_step_run(net, p0, batch, False)
+    pstate, phist, _ = ctc_step_run(net, p0, batch, True)
+    qstate, _, _ = ctc_step_run(net, p0, batch, True)
+    l0, lk, lp_, lq = (tree_leaves(x) for x in (p0, kstate.params, pstate.params,
+                                                 qstate.params))
+    dp = lambda ps: [a - b for a, b in zip(ps, l0)]
+    param_err = rel_err(lk, lp_)
+    upd_k, upd_q = rel_err(dp(lk), dp(lp_)), rel_err(dp(lq), dp(lp_))
+    bound = SENS_FACTOR * upd_q if upd_q > 0 else STEP_PARAM_RTOL
+    mu = lambda st: tree_leaves(st.opt_state[0][0]["mu"])  # build_optimizer("adamax")
+    mu_k, mu_q = rel_err(mu(kstate), mu(pstate)), rel_err(mu(qstate), mu(pstate))
+    mu_bound = max(STEP_PARAM_RTOL, SENS_FACTOR * mu_q)
+    loss_err = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                   for a, b in zip(khist, phist))
+    log(f"(d) make_ctc_train_step (preprocess=batch_standardize, Adamax {GAUSS_LR}, res_w "
+        f"scaled), 3 steps: launches a step {launches}; losses "
+        f"{[round(h['total_loss'], 5) for h in khist]}; against the plain CTC's 3: params "
+        f"{param_err:.3e} (bound {STEP_PARAM_RTOL}), updates {upd_k:.3e} (bound {bound:.3e}: "
+        f"two plain runs differ by {upd_q:.3e}), Adamax's mu {mu_k:.3e} (bound {mu_bound:.3e}: "
+        f"two plain runs differ by {mu_q:.3e}), max relative loss difference {loss_err:.3e}")
+    if not (param_err <= STEP_PARAM_RTOL and upd_k <= bound and mu_k <= mu_bound):
+        raise AssertionError("(d) the kernel CTC steps differ from the plain CTC steps")
+    del model, net, kstate, pstate, qstate
+    small_ctc_steps(dev)
+
+
+def small_ctc_steps(dev):
+    """A small RawCTCNet (16 features, dilations 1, 2, 4): 3 steps of
+    make_ctc_train_step with batch_standardize on the card and on the CPU
+    from the same weights; the metrics within 1e-4 relative, each element of
+    the params and the optimizer state within 1e-4 relative plus 1e-4 of its
+    leaf's largest magnitude (as tests/test_torch_ctc_step.py)."""
+    layers = tuple((16, 16, 3, d) for d in (1, 2, 4))
+    ds = Dataset("raw-gauss", batch_size=3, min_length=30, max_length=40, upsampling=3,
+                 seed=SEED + 10)
+    batch = {k: v for k, v in dataclasses.asdict(ds.fetch("train")).items()}
+    out = []
+    for device in (dev, "cpu"):
+        net = RawCTCNet(16, 3, LABELS, layers, 16, softmax=False, device="cpu")
+        net.reset_parameters(torch.Generator().manual_seed(SEED + 3))
+        net = net.to(device)
+        tx = build_optimizer("adamax", 1e-3)
+        step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
+        state = TrainState.create({k: v.detach().clone() for k, v in net.state_dict().items()},
+                                  tx)
+        hist = []
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch)
+            hist.append({k: float(v) for k, v in m.items()})
+        out.append((hist, [t.cpu() for t in tree_leaves((state.params, state.opt_state))]))
+    (hk, pk), (hc, pc) = out
+    for a, b in zip(hk, hc):
+        for k in b:
+            if not math.isclose(a[k], b[k], rel_tol=1e-4, abs_tol=1e-6):
+                raise AssertionError(f"small RawCTCNet: card {k}={a[k]} != CPU {b[k]}")
+    for a, b in zip(pk, pc):
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
+    log(f"(d) small RawCTCNet (16 features, 3 blocks, batch_standardize): 3 steps on the "
+        f"card equal the CPU's (losses {[round(h['total_loss'], 5) for h in hk]})")
+
+
+def run_evaluate(cfg_path, decoder):
+    """(e) The evaluate command; returns (batches, loss, identity, launches,
+    the printed line)."""
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["evaluate", str(cfg_path)])
+    launches = {k: v for k, v in read_counts().items() if v}
+    line = buf.getvalue().strip().splitlines()[-1]
+    m = re.match(r"eval loss over (\d+) batches: (\S+) \| basecall identity: (\S+)$", line)
+    if rc != 0 or not m:
+        raise AssertionError(f"(e) evaluate ({decoder}): rc {rc}, output {buf.getvalue()!r}")
+    return int(m[1]), float(m[2]), m[3], launches, line
+
+
+def phase_evaluate(cfg, run_dir, model, state, eval_fn):
+    """(e) evaluate on (a)'s run directory, decoder beam (W=7) and argmax:
+    B1 once a batch (the eval step), B6 once a batch for beam; the printed
+    loss equals the eval step on the same held-out batches, and the identity
+    batch_identity of the same logits decoded by beam_search_ref, B6's
+    plain version, which B6 must equal row for row (for argmax, by an
+    argmax and CTC collapse written out here, not the port's decoder). Returns B6's numbers
+    at this shape and the decode times."""
+    out, ref_ids, ref_ids_argmax, losses, b6 = {}, [], [], [], None
+    ds = cli.build_dataset(cfg)
+    err = 0.0
+    for i in range(GAUSS_EVAL_BATCHES):
+        b = ds.fetch("valid")
+        batch = batch_to_device(b, model.device)
+        losses.append(float(eval_fn(state.params, batch)["total_loss"]))
+        with torch.no_grad():
+            logits = model(batch["signal"])
+        frames = model.output_length(b.signal_lengths)
+        lengths = torch.as_tensor(frames, dtype=torch.int32, device=model.device)
+        lp = torch.log_softmax(logits.float(), -1)
+        T = lp.shape[1]
+        kw = dict(beam_width=BEAM_WIDTH, max_label_len=T)
+        plain_ms, want = host_ms(lambda: beam_finalize(beam_search_ref(lp, lengths, **kw)))
+        _, e = compare_beams(beam_finalize(beam_search_kernel(lp, lengths, **kw)), want,
+                             BEAM_WIDTH)
+        err = max(err, e)
+        targets = labels2strings([b.labels[r, :b.label_lengths[r]] for r in range(len(b.labels))])
+        decoded = labels2strings([want[0][r, 0, :int(want[1][r, 0])].cpu().numpy()
+                                  for r in range(len(b.labels))])
+        ref_ids.append(batch_identity([list(d) for d in decoded], targets)[0])
+        best = logits.argmax(-1).cpu().numpy()
+        greedy = []
+        for r in range(len(b.labels)):  # collapse repeats, then drop blanks (label 0)
+            row = best[r, :int(frames[r])]
+            greedy.append([int(c) for i, c in enumerate(row) if c and (i == 0 or c != row[i - 1])])
+        ref_ids_argmax.append(batch_identity([list(d) for d in labels2strings(greedy)],
+                                             targets)[0])
+        if i == 0:
+            ms = cuda_ms(lambda: beam_search_kernel(lp, lengths, **kw), 5)
+            bound_ms, bound_by = bound_of(*b6_work(lp, lengths, T))
+            beam_ms, _ = host_ms(lambda: Decoder("beam", BEAM_WIDTH).decode(logits, lengths), 3)
+            argmax_ms, _ = host_ms(lambda: Decoder("argmax").decode(logits, lengths), 3)
+            b6 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                      shape=f"B={lp.shape[0]} T={T} C={lp.shape[2]} W={BEAM_WIDTH} S={T}",
+                      beam_ms=beam_ms, argmax_ms=argmax_ms)
+    want_loss = float(np.mean(losses))
+    for decoder, ids in (("beam", ref_ids), ("argmax", ref_ids_argmax)):
+        c = copy.deepcopy(cfg)
+        c["training"]["decoder"] = decoder
+        path = run_dir / f"evaluate_{decoder}.json"
+        path.write_text(json.dumps(c))
+        n, loss, ident, launches, line = run_evaluate(path, decoder)
+        want_launches = {"ctc_alpha": GAUSS_EVAL_BATCHES}
+        if decoder == "beam":
+            want_launches["ctc_beam"] = GAUSS_EVAL_BATCHES
+        want_ident = f"{np.mean(ids):.3f}"
+        problems = [what for what, bad in (
+            (f"{n} batches", n != GAUSS_EVAL_BATCHES),
+            (f"launches {launches} != {want_launches}", launches != want_launches),
+            (f"loss {loss} != the eval step's {want_loss:.6f}",
+             abs(loss - want_loss) > EVAL_LOSS_ATOL + 1e-6 * abs(want_loss)),
+            (f"identity {ident} != the plain decode's {want_ident}", ident != want_ident))
+            if bad]
+        if problems:
+            raise AssertionError(f"(e) evaluate ({decoder}): " + "; ".join(problems))
+        out[decoder] = launches
+        log(f"(e) evaluate, decoder {decoder}: {line!r}; launches {launches}; the eval step "
+            f"recomputed {want_loss:.6f}, the identity of the plain decode {want_ident}")
+    log(f"(e) B6 at {b6['shape']}: every live row of the {GAUSS_EVAL_BATCHES} batches equal "
+        f"to beam_search_ref's (max score error {err:.3e}); kernel_ms={b6['ms']:.4f} "
+        f"plain_ms={b6['plain_ms']:.1f} bound_ms={b6['bound_ms']:.6f} ({b6['bound_by']}); "
+        f"Decoder.decode a batch: beam {b6['beam_ms']:.3f} ms, argmax {b6['argmax_ms']:.3f} ms "
+        f"(host clock, copies to the host included)")
+    b6.update(err=err, launches=out["beam"]["ctc_beam"])
+    return b6
+
+
+def gauss_step_parts(model, step, state, batch):
+    """(f) Where the train step goes: the forward (CTC loss included) and
+    the backward (CUDA events, mean of 3), the skip guard and Adamax's
+    update on a tree of the params' shapes (CUDA events), the step on the
+    host clock (mean of 5, synchronised), and the card's busy share over 3
+    steps: the CUDA kernels' summed device time (torch.profiler) over the
+    steps' host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fwd = bwd = 0.0
+    for _ in range(3):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        ev[0].record()
+        loss, _, _ = _forward_losses(model.model_base, model.model_ctc, JointLoss("ctc"),
+                                     params, batch, None, None)
+        ev[1].record()
+        torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd += ev[0].elapsed_time(ev[1]) / 3
+        bwd += ev[1].elapsed_time(ev[2]) / 3
+    g = state.params
+    tx = build_optimizer("adamax", GAUSS_LR)
+    guard_ms = cuda_ms(lambda: (global_norm_safe(g), all_finite(g)), 3)
+    update_ms = cuda_ms(lambda: tx.update(g, state.opt_state, g), 3)
+    box = [state]
+
+    def one_step():
+        box[0], m = step(box[0], batch)
+        return m
+
+    host_step_ms, _ = host_ms(one_step, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = host_ms(one_step, 3)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 3 / 1e3
+    log(f"(f) parts of a train step: forward {fwd:.3f} ms, backward {bwd:.3f} ms (CUDA "
+        f"events), skip guard {guard_ms:.3f} ms, Adamax update {update_ms:.3f} ms "
+        f"({len(tree_leaves(g))} parameter tensors); the step on the host clock "
+        f"{host_step_ms:.3f} ms; the card busy {busy_ms:.3f} of {wall_ms:.3f} ms a step "
+        f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%}; torch.profiler)")
+
+
+def run_gauss_training(dev, card):
+    """Phase 10: configs/gauss_quality.json trained through the train
+    command and scored through evaluate, make_ctc_train_step at its width,
+    B1/B2 and B6 at its shapes. card: nvidia-smi's name and power limit."""
+    t0 = time.perf_counter()
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_gauss_"))
+    try:
+        cfg = gauss_cfg(run_dir)
+        raw, tr = cfg["model"]["raw"], cfg["training"]
+        log(f"phase 10 model: configs/gauss_quality.json's RawCTCNet ({raw['num_features']} "
+            f"features, {raw['num_dilation_blocks']} x {raw['dilations']} blocks + the input "
+            f"block, causal {raw['causal']}), {tr['datatype']} B={tr['batch_size']}, "
+            f"{GAUSS_STEPS} steps a run")
+        # ---- (a) the main path: the train command, then resumed
+        counts, rates = gauss_train_runs(cfg, run_dir, dev)
+        ds, model, state, (step, *_), eval_fn, t = cli.build_from_config(
+            copy.deepcopy(cfg), dev)
+        state = restore_checkpoint(str(run_dir / "ckpts"), state)
+        model.load_params(state.params)
+        # ---- (b) BatchNorm's running statistics
+        check_running_stats(cfg, state)
+        # ---- (c) B1 and B2 on the real step's inputs at this shape
+        b = ds.fetch("train")
+        batch = batch_to_device(b, dev)
+        logits, lp_ext, skip = gauss_step_inputs(model, state, batch)
+        T, Bx, J = lp_ext.shape
+        log(f"(c) B=6 T={T} J={J}: geometry (R, C, threads, D) "
+            f"{ctc_scan.ctc_geometry(J, 1, Bx, ctc_scan._sms(lp_ext.device))} (B1), "
+            f"{ctc_scan.ctc_geometry(J, 2, Bx, ctc_scan._sms(lp_ext.device))} (B2)")
+        b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
+        # ---- (f) the train step, the eval step, peak memory
+        box = [state]
+
+        def one_step():
+            box[0], m = step(box[0], batch)
+            return m
+
+        one_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(one_step, 5, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        eval_ms = cuda_ms(lambda: eval_fn(state.params, batch), 5)
+        n = int(np.prod(b.signal.shape[:2]))
+        log(f"(f) train_step_ms={step_ms:.3f} samples_per_s={n / step_ms * 1e3:.0f} (B=6, "
+            f"L={b.signal.shape[1]}, T={T}, Adamax, float32, TF32 off; CUDA events, mean of 5 "
+            f"after a warm step) eval_step_ms={eval_ms:.3f}; loop samples_per_s "
+            f"{rates[0]:.0f} / {rates[1]:.0f} (runs 1 / 2); peak memory {peak:.2f} GiB; "
+            f"card {card}")
+        gauss_step_parts(model, step, state, batch)
+        # ---- (e) the evaluate command
+        b6 = phase_evaluate(cfg, run_dir, model, state, eval_fn)
+        del model, state, box, ds, logits, lp_ext
+        torch.cuda.empty_cache()
+        # ---- (d) make_ctc_train_step at full width
+        phase_ctc_step(dev, batch)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    shape = f"B={Bx} T={T} J={J}"
+    return dict(b1=dict(b1, launches=counts["ctc_alpha"], shape=shape),
+                b2=dict(b2, launches=counts["ctc_beta"], shape=shape), b6=b6)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2356,6 +2788,8 @@ def main() -> int:
     b3 = run_parallel(dev, smi)
     # ---- 9. long-read serving: chunked forwards, B6 on the carried state
     long_read = run_long_read(dev, smi)
+    # ---- 10. RawCTCNet training and evaluation: train, evaluate, B1/B2/B6
+    gauss = run_gauss_training(dev, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
 
@@ -2401,6 +2835,16 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
     kernels.extend(b3)
+    for key, name, source, replaces in (
+            ("b1", "ctc_alpha", "ctc.cu", "ctc.py:83"), ("b2", "ctc_beta", "ctc.cu", "ctc.py:142"),
+            ("b6", "ctc_beam", "ctc_beam.cu", "attic/beam.py:62")):
+        k = gauss[key]
+        kernels.append(dict(
+            name=name, shape=f"gauss_quality {k['shape']}", route="cuda",
+            source=f"wavenet_speech_tpu_torch/csrc/{source}",
+            replaces=f"wavenet_speech_tpu/ops/pallas/{replaces}", launches=k["launches"],
+            max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

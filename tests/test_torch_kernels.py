@@ -87,8 +87,9 @@ def _assert_beams_equal(got, want, W):
             assert torch.equal(t1[b, r, :n], t0[b, r, :n])
 
 
-# long prefixes (T=1200, S=4608), W=32, B=1 and B=64, and W=32 over 600
-# frames, whose node pool does not fit in shared memory
+# long prefixes (T=1200, S=4608), W=32, B=1 and B=64, W=32 over 600
+# frames, whose node pool does not fit in shared memory, and
+# configs/gauss_quality.json's evaluate (B=6, T=S=488)
 @pytest.mark.parametrize("B,T,C,W,S,prune", [(2, 100, 5, 7, 64, None),
                                              (2, 60, 30, 8, 32, None),
                                              (1, 60, 30, 8, 32, 12),
@@ -97,7 +98,8 @@ def _assert_beams_equal(got, want, W):
                                              (2, 100, 5, 32, 64, None),
                                              (1, 100, 5, 7, 64, None),
                                              (64, 100, 5, 7, 64, None),
-                                             (1, 600, 5, 32, 64, None)])
+                                             (1, 600, 5, 32, 64, None),
+                                             (6, 488, 5, 7, 488, None)])  # gauss_quality
 def test_beam_kernel_matches_plain(cuda, B, T, C, W, S, prune):
     rng = np.random.default_rng(T + C)
     logits = (2 * rng.standard_normal((B, T, C))).astype(np.float32)
@@ -229,7 +231,9 @@ def _ctc_inputs(cuda, B, T, S, C, seed):
     (2, 6, 4095, 30, False, None),           # J = 8191
     (4, 60, 20, 5, False, [60, 21, 9, 37]),  # lengths end mid-ring
     (8, 40, 429, 5, True, None),             # a segment at J = 859
-    (8, 4, 429, 5, True, None)])             # ... wholly past tl_true (T - 5 < 0)
+    (8, 4, 429, 5, True, None),              # ... wholly past tl_true (T - 5 < 0)
+    (6, 488, 89, 5, False, [488] * 6),       # gauss_quality's J = 179: one block a sequence
+    (6, 488, 89, 5, False, [488, 470, 301, 488, 412, 450])])
 def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg, lengths):
     lp, skip, lens, lab, cot = _ctc_inputs(cuda, B, T, S, C, T + S)
     if lengths is not None:

@@ -3,7 +3,10 @@ against the JAX package on the CPU, JAX params carried over by the bridge
 (unrolled and cycle-stacked stacks), on raw float signals made from a seed.
 Tolerance: rtol 1e-4, atol 1e-5, as the other model tests (sums over
 several blocks in another order). Also the new init arguments, hardtanh,
-with_noise, and that training a raw-ctcnet still raises (ROADMAP A8)."""
+with_noise, and that a raw-ctcnet pair trains: BatchNorm1d's training form
+and update_state, the train and eval steps, and the CLI's train command
+(held to JAX in tests/test_torch_norm.py, test_torch_ctc_step.py and
+test_torch_evaluate.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,22 +89,28 @@ def test_batchnorm_eval_matches_jax():
     bn.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
     x = _raw(2, 40, 5) * 3
     with torch.no_grad():
-        got = bn(torch.from_numpy(x)).numpy()
+        got = bn.eval_form()(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jbn.apply(p, jnp.asarray(x))), rtol=1e-6,
                                atol=1e-6)
 
 
 def test_batchnorm_training_form_raises():
-    """BatchNorm1d has only its eval form: forward normalizes with the
-    running statistics; update_state and the train step refuse, citing A8."""
+    """BatchNorm1d trains: its forward normalizes with the batch's
+    statistics, its eval form with the running ones, update_state keeps
+    the running EMA, and the train step takes the module."""
     bn = BatchNorm1d(1, device="cpu")
     bn.reset_parameters()
     assert [float(getattr(bn, k).detach()) for k in ("gamma", "beta", "mean", "var")] == [1, 0, 0, 1]
-    assert torch.equal(bn(torch.ones(1, 4, 1)), torch.ones(1, 4, 1) * (1 / (1 + 1e-5) ** 0.5))
-    with pytest.raises(NotImplementedError, match="A8"):
-        bn.update_state({}, {}, torch.zeros(1, 4, 1))
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_joint_train_step(bn, torch.nn.Identity(), build_optimizer("adam", 1e-3))
+    x = torch.arange(8.0).reshape(2, 4, 1)
+    with torch.no_grad():
+        assert torch.allclose(bn(x), (x - 3.5) / (5.25 + 1e-5) ** 0.5)
+        assert torch.equal(bn.eval_form()(torch.ones(1, 4, 1)),
+                           torch.ones(1, 4, 1) * (1 / (1 + 1e-5) ** 0.5))
+    params = {k: v.detach() for k, v in bn.state_dict().items()}
+    new = bn.update_state(params, params, x)
+    assert torch.allclose(new["mean"], torch.tensor([0.35]))
+    assert torch.allclose(new["var"], torch.tensor([0.9 + 0.1 * 6.0]))
+    make_joint_train_step(bn, torch.nn.Identity(), build_optimizer("adam", 1e-3))
 
 
 @pytest.mark.parametrize("blocks", [1, 2])  # unrolled, cycle-stacked
@@ -158,18 +167,21 @@ def test_model_raw_ctcnet_save_restore(tmp_path):
 
 
 def test_training_raw_ctcnet_raises(tmp_path):
+    """Training a raw-ctcnet pair runs: the steps build, and the CLI trains
+    (CTC loss by default) and moves BatchNorm's running statistics."""
     m = Model("raw-ctcnet", raw_cfg(), device="cpu").init(0)
     tx = build_optimizer("adamax", 2e-4)
-    for make in (lambda: make_joint_train_step(m.model_base, m.model_ctc, tx),
-                 lambda: make_eval_step(m.eval_base(), m.model_ctc)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            make()
+    make_joint_train_step(m.model_base, m.model_ctc, tx)
+    make_eval_step(m.eval_base(), m.model_ctc)
     cfg = raw_cfg()
-    cfg["training"] = {"datatype": "raw-gauss", "loss": "ctc", "save_dir": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.build_from_config(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.train(cfg, "cpu")
+    cfg["training"] = {"datatype": "raw-gauss", "save_dir": str(tmp_path), "batch_size": 2,
+                       "min_sample_length": 20, "max_sample_length": 24, "upsampling": 3,
+                       "max_iters": 2, "print_every": 1, "save_every": 2}
+    ds, model, state, *_, t = cli.build_from_config(cfg, "cpu")
+    assert ds.signal_channels == 1 and model.model_type == "raw-ctcnet"
+    assert cli.train_with_result(cfg, "cpu")["steps"] == 2
+    base = torch.load(tmp_path / "ckpts" / "2" / "state.pt", weights_only=False)["params"]["base"]
+    assert float(base["mean"]) > 1 and float(base["var"]) > 1
 
 
 def test_init_arguments_default_to_the_old_behaviour():

@@ -110,6 +110,14 @@ def params_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
             **{f"model_ctc.{k}": v for k, v in p["ctc"].items()}}
 
 
+def _train_params_from_jax(tree: Tree) -> Dict[str, Any]:
+    """A train step's params: a pair's {"base", "ctc"} tree, or one
+    RawCTCNet's tree (the params of ``make_ctc_train_step``)."""
+    if "feat_conv" in tree:
+        return raw_ctcnet_from_jax(tree)
+    return param_tree_from_jax(tree)
+
+
 def _opt_state_from_jax(s):
     """An optax state -> the port's (training/optimizer.py): a chain's tuple
     stays a tuple, a state NamedTuple becomes a dict of its fields, a
@@ -120,18 +128,21 @@ def _opt_state_from_jax(s):
     if isinstance(s, (tuple, list)):
         return tuple(_opt_state_from_jax(v) for v in s)
     if isinstance(s, dict):
-        return param_tree_from_jax(s)
+        return _train_params_from_jax(s)
     return torch.from_numpy(np.array(s))
 
 
 def train_state_from_jax(state):
-    """A JAX ``training.TrainState`` (params {"base", "ctc"}, the optax
-    state of ``build_optimizer``, step) as the port's ``TrainState``, on the
-    CPU: a JAX run resumes in the port. Covers every rule of
-    ``build_optimizer``: adagrad's sum_of_squares, adam/adamw/adamax's mu,
-    nu and count, rmsprop's nu, a schedule's count."""
+    """A JAX ``training.TrainState`` (params {"base", "ctc"} of either model
+    type, or one RawCTCNet's of ``make_ctc_train_step``; the optax state of
+    ``build_optimizer``; step) as the port's ``TrainState``, on the CPU: a
+    JAX run resumes in the port. Covers every rule of ``build_optimizer``:
+    adagrad's sum_of_squares, adam/adamw/adamax's mu, nu and count,
+    rmsprop's nu, a schedule's count; a raw-ctcnet pair's BatchNorm leaves
+    (gamma, beta and the running mean and var) in params and in the
+    optimizer's trees."""
     from wavenet_speech_tpu_torch.training.trainer import TrainState
 
-    return TrainState(params=param_tree_from_jax(state.params),
+    return TrainState(params=_train_params_from_jax(state.params),
                       opt_state=_opt_state_from_jax(state.opt_state),
                       step=torch.from_numpy(np.array(state.step, dtype=np.int32)))

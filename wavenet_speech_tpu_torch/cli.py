@@ -1,14 +1,22 @@
-"""Config-driven trainer and basecaller (wavenet_speech_tpu/cli.py):
+"""Config-driven trainer, evaluator and basecaller (wavenet_speech_tpu/
+cli.py):
 
     python -m wavenet_speech_tpu_torch.cli train cfg.json [--device cpu]
+    python -m wavenet_speech_tpu_torch.cli evaluate cfg.json [--device cpu]
     python -m wavenet_speech_tpu_torch.cli basecall cfg.json --signals sig.npy
         [--out calls.fasta] [--long] [--device cpu]
+
+Both model types train: wavenet-ctc on the joint loss by default, and
+raw-ctcnet (BatchNorm1d + RawCTCNet) on the CTC loss, keeping BatchNorm's
+running statistics.
 
 The training loop follows the JAX CLI's: fixed or fresh validation batches
 re-scored at every print, a moving-average train loss, samples/s, early stop
 on the validation loss, periodic checkpoints (optionally written on a
 thread), resume from the latest checkpoint of the run directory, and a save
-on exit. ``basecall`` restores the run's latest checkpoint and writes FASTA;
+on exit. ``evaluate`` restores the run's checkpoint and prints the held-out
+loss and the basecall identity over ``eval_batches`` validation batches.
+``basecall`` restores the run's latest checkpoint and writes FASTA;
 reads above 65,536 samples (or all reads, with ``--long``) go through the
 chunked forwards and the streaming beam. The commands run on ``cuda``
 unless ``--device`` names another device (``--device cpu`` runs the
@@ -23,8 +31,8 @@ forward's, as JAX's ``chunked_logits`` documents. A pooled wavenet-ctc
 head cannot be chunked (the grid counts samples) and is refused up front,
 where the JAX package fails its stitching check.
 
-Not ported yet: the ``evaluate`` command, training raw-ctcnet, and every
-datatype but ``pore`` (ROADMAP A8-A10).
+Not ported yet: the ``hdf5`` datatype (ROADMAP A9) and the native beam
+engine (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ import torch
 
 from wavenet_speech_tpu_torch.data.common import Batch, MuLawQuantizer, one_hot_lc
 from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
-from wavenet_speech_tpu_torch.facade import Dataset, Model
+from wavenet_speech_tpu_torch.decoding.alignment import batch_identity
+from wavenet_speech_tpu_torch.decoding.greedy import labels2strings
+from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
 from wavenet_speech_tpu_torch.inference import Basecaller
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
@@ -82,17 +92,12 @@ def _arm_watchdog():
         _progress["armed"] = True
 
 
-def build_from_config(cfg, device=None):
-    """(dataset, model, state, (step, xe_step, xe_iters, multi_step, K),
-    eval_step, training block) of a config, as the JAX CLI builds them
-    (cli.py:64-142). The model is on ``device`` (default ``cuda``)."""
+def build_dataset(cfg) -> Dataset:
+    """The config's training and validation streams (cli.py:79-91): every
+    run of a config starts them from its seed."""
     t = training_cfg(cfg)
-    if cfg.get("model", {}).get("type", "wavenet-ctc") == "raw-ctcnet":
-        raise NotImplementedError(
-            "training raw-ctcnet is not ported yet (ROADMAP A8: BatchNorm1d.update_state, "
-            "make_ctc_train_step, the raw-gauss data of A9); basecall serves it")
     datatype = t.get("datatype", "pore" if t["training_data"] is None else "hdf5")
-    dataset = Dataset(
+    return Dataset(
         datatype, dataset=t["training_data"],
         max_iters=t["max_iters"], num_epochs=t["num_epochs"],
         epoch_size=t["epoch_size"], batch_size=t["batch_size"],
@@ -101,6 +106,13 @@ def build_from_config(cfg, device=None):
         seed=t.get("seed"), upsampling=t.get("upsampling", 4),
         sample_noise=t.get("sample_noise", 2.0))
 
+
+def build_from_config(cfg, device=None):
+    """(dataset, model, state, (step, xe_step, xe_iters, multi_step, K),
+    eval_step, training block) of a config, as the JAX CLI builds them
+    (cli.py:64-142). The model is on ``device`` (default ``cuda``)."""
+    t = training_cfg(cfg)
+    dataset = build_dataset(cfg)
     model_type = cfg.get("model", {}).get("type", "wavenet-ctc")
     model = Model(model_type, cfg, device=device).init(t.get("seed") or 0)
 
@@ -111,11 +123,12 @@ def build_from_config(cfg, device=None):
                          max_update_norm=opt.get("max_update_norm"))
     state = TrainState.create(model.params(), tx)
 
-    loss_choice = t.get("loss", "joint")
+    loss_choice = t.get("loss", "joint" if model_type == "wavenet-ctc" else "ctc")
     loss = JointLoss(loss_choice)
     compute_dtype = None
     if str(t.get("compute_dtype", "")).lower() in ("bf16", "bfloat16"):
         compute_dtype = torch.bfloat16
+    # signal lengths -> logit lengths: L // pool, or RawCTCNet's L + fk - 1
     logit_length_fn = model.output_length if t.get("length_aware_ctc") else None
     kw = dict(compute_dtype=compute_dtype, logit_length_fn=logit_length_fn)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, loss, **kw)
@@ -233,6 +246,40 @@ def train_with_result(cfg, device=None) -> dict:
             "train_loss": meter.value, "steps": step_idx}
 
 
+def evaluate(cfg, device=None) -> int:
+    """Score the run's checkpoint (``restore``, else the latest under
+    ``<save_dir>/ckpts/``) on ``eval_batches`` held-out batches: the eval
+    step's loss and the basecall identity of the ``decoder`` ("argmax" or
+    "beam", ``beam_width``) against the labels, padded frames excluded
+    (cli.py:304-363). Prints the JAX CLI's line."""
+    dataset, model, state, _, eval_fn, t = build_from_config(cfg, device)
+    ckpt = t.get("restore") or f"{t['save_dir'].rstrip('/')}/ckpts/"
+    state = restore_checkpoint(ckpt, state)
+    model.load_params(state.params)
+    decoder = Decoder(t.get("decoder", "argmax"), beam_width=t.get("beam_width", 7))
+    losses, identities = [], []
+    for i in range(t.get("eval_batches", 10)):
+        try:
+            batch = dataset.fetch("valid")
+        except StopIteration:
+            break
+        dev = batch_to_device(batch, model.device)
+        losses.append(float(eval_fn(state.params, dev)["total_loss"]))
+        with torch.no_grad():
+            logits = model(dev["signal"])
+        _, decoded = decoder.decode(logits, lengths=model.output_length(batch.signal_lengths))
+        targets = labels2strings([batch.labels[b, :batch.label_lengths[b]]
+                                  for b in range(batch.labels.shape[0])])
+        identities.append(batch_identity([list(d) for d in decoded], targets)[0])
+        if t.get("print_samples") and i == 0:
+            for d, tg in list(zip(decoded, targets))[:4]:
+                print(f"  pred: {d}\n  true: {tg}")
+    print(f"eval loss over {len(losses)} batches: "
+          f"{np.mean(losses) if losses else float('nan'):.4f} | basecall identity: "
+          f"{np.mean(identities) if identities else float('nan'):.3f}", flush=True)
+    return 0
+
+
 LONG_READ_SAMPLES = 65536  # reads longer than this take the long path
 
 
@@ -296,8 +343,8 @@ def basecall(cfg, signals_path: str, out_path: Optional[str] = None,
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m wavenet_speech_tpu_torch.cli",
-        description="WaveNet-CTC trainer and basecaller, PyTorch/CUDA port")
-    ap.add_argument("command", choices=["train", "basecall"])
+        description="WaveNet-CTC trainer, evaluator and basecaller, PyTorch/CUDA port")
+    ap.add_argument("command", choices=["train", "evaluate", "basecall"])
     ap.add_argument("config", help="path to JSON config")
     ap.add_argument("--signals", default=None, help="basecall: NPY/NPZ file of signals")
     ap.add_argument("--out", default=None, help="basecall: output FASTA path (default stdout)")
@@ -313,6 +360,8 @@ def main(argv: Optional[list] = None) -> int:
         if not args.signals:
             ap.error("basecall needs --signals")
         return basecall(cfg, args.signals, args.out, args.long, args.device)
+    if args.command == "evaluate":
+        return evaluate(cfg, args.device)
     _arm_watchdog()
     return train(cfg, args.device)
 

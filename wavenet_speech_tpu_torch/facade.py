@@ -1,28 +1,39 @@
-"""Facade (wavenet_speech_tpu/facade.py): the base + CTC model pair and the
-datatype-dispatching dataset.
+"""Facade (wavenet_speech_tpu/facade.py): the base + CTC model pair, the
+datatype-dispatching dataset and the logits decoder.
 
-    model = Model("wavenet-ctc", cfg).init(seed=0)       # or .load_jax(tree)
+    model = Model("raw-ctcnet", cfg).init(seed=0)         # or .load_jax(tree)
     base_out, logits = model.predict(signal)               # (B, L, C) NLC
-    data = Dataset("pore", batch_size=8, seed=0)
+    data = Dataset("raw-gauss", batch_size=8, seed=0)
     batch = data.fetch("train")                            # data.Batch, numpy
+    scores, strings = Decoder("beam", beam_width=7).decode(logits)
 
 ``Model`` runs on ``cuda`` unless ``device`` is given, and raises when no
-CUDA device is present and none was given. ``Model("raw-ctcnet")`` serves:
-``BatchNorm1d`` normalizes with its running statistics, then RawCTCNet;
-training it (``BatchNorm1d.update_state``, the CTC-only step) is not ported
-yet (ROADMAP A8). ``Decoder`` of the JAX facade, and every ``Dataset``
-datatype but ``pore``, are not ported yet (ROADMAP A9, A10).
+CUDA device is present and none was given. ``Model("raw-ctcnet")`` is
+BatchNorm1d followed by RawCTCNet: the train step normalizes with the
+batch's statistics and keeps the running ones through
+``BatchNorm1d.update_state``; ``predict`` and every serving path use the
+running statistics (``Model.eval_base()``). ``Dataset`` takes every
+datatype of the JAX facade but ``hdf5`` (ROADMAP A9) and ``raw-hdf5``
+(unsupported there too). ``Decoder``'s beam runs on the card (B6) or in
+numpy; the host C++ engine is not ported (ROADMAP A10).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from wavenet_speech_tpu_torch.bridge import params_from_jax
 from wavenet_speech_tpu_torch.data.common import Batch
+from wavenet_speech_tpu_torch.data.gaussian_kmer import (GaussianModelLoader,
+                                                        RawGaussianModelLoader)
 from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModelLoader
+from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
+from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
+from wavenet_speech_tpu_torch.decoding.prefix_beam import beam_search_decode
 from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, WaveNetClassifier
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
 from wavenet_speech_tpu_torch.training.trainer import param_tree
@@ -33,21 +44,23 @@ from wavenet_speech_tpu_torch.utils.device import resolve_device
 
 class BatchNorm1d(nn.Module):
     """Batch normalization over (batch, time) of raw signals, the base model
-    of the raw-ctcnet pair (facade.py:36-80), in its eval form only
-    (``use_running=True``): normalized with the running mean and variance.
-    gamma, beta, mean and var are all parameters, as they are leaves of the
-    JAX params tree. The training form (batch statistics) and
-    ``update_state``, its running-statistics EMA, are not ported yet
-    (ROADMAP A8): the train and eval steps refuse a model that carries
-    ``not_trainable``."""
+    of the raw-ctcnet pair (facade.py:36-80; the reference's
+    ``nn.BatchNorm1d(1)``). gamma, beta, mean and var are all parameters,
+    as they are leaves of the JAX params tree; mean and var get no gradient.
 
-    not_trainable = ("training raw-ctcnet is not ported yet (ROADMAP A8: BatchNorm1d's "
-                     "training form and update_state, ops/norm.py, make_ctc_train_step); "
-                     "the port serves it")
+    The module normalizes with the batch's mean and biased variance over
+    (B, L), as torch's train mode; the train step then calls
+    ``update_state``, which keeps the running mean and unbiased variance as
+    torch's momentum EMA. ``eval_form()`` normalizes with the running
+    statistics, as torch's ``.eval()``."""
 
-    def __init__(self, num_features: int = 1, eps: float = 1e-5, *, device=None):
+    running_statistics = True  # batch statistics in training: one rank's batch
+    EPS = 1e-5
+    MOMENTUM = 0.1
+
+    def __init__(self, num_features: int = 1, *, device=None):
         super().__init__()
-        self.eps = eps
+        self.use_running = False  # eval_form() turns it on in a shallow copy
         for name in ("gamma", "beta", "mean", "var"):
             self.register_parameter(name, nn.Parameter(
                 torch.empty((num_features,), device=device)))
@@ -58,11 +71,32 @@ class BatchNorm1d(nn.Module):
                          (self.var, 1.0)):
                 p.fill_(v)
 
-    def forward(self, x):
-        return self.gamma * (x - self.mean) * torch.rsqrt(self.var + self.eps) + self.beta
+    def eval_form(self) -> "BatchNorm1d":
+        """This module in its eval form, sharing its parameters (JAX's
+        ``dataclasses.replace(bn, use_running=True)``)."""
+        view = copy.copy(self)
+        view.use_running = True
+        return view
 
-    def update_state(self, *args, **kwargs):
-        raise NotImplementedError(self.not_trainable)
+    def forward(self, x):
+        if self.use_running:
+            mean, var = self.mean, self.var
+        else:
+            mean = x.mean(dim=(0, 1))
+            var = x.var(dim=(0, 1), unbiased=False)
+        return self.gamma * (x - mean) * torch.rsqrt(var + self.EPS) + self.beta
+
+    def update_state(self, old_params, new_params, *inputs):
+        """new_params with mean and var replaced by the EMA
+        (1 - m) * old + m * batch, from old_params' running statistics and
+        the batch's mean and unbiased variance over (B, L) of inputs[0]."""
+        x = inputs[0].detach()
+        n = x.shape[0] * x.shape[1]
+        bm = x.mean(dim=(0, 1))
+        bv = x.var(dim=(0, 1), unbiased=False) * (n / max(n - 1, 1))
+        m = self.MOMENTUM
+        return dict(new_params, mean=(1 - m) * old_params["mean"] + m * bm,
+                    var=(1 - m) * old_params["var"] + m * bv)
 
 
 class Model(nn.Module):
@@ -140,8 +174,10 @@ class Model(nn.Module):
         return self
 
     def eval_base(self) -> nn.Module:
-        """The base model in eval mode: ``model_base`` itself (BatchNorm1d
-        has only its eval form; WaveNet holds no statistics)."""
+        """The base model in eval mode: BatchNorm1d's eval form (the running
+        statistics, sharing the parameters), or WaveNet itself."""
+        if isinstance(self.model_base, BatchNorm1d):
+            return self.model_base.eval_form()
         return self.model_base
 
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -174,7 +210,7 @@ class Model(nn.Module):
     def predict(self, signal: torch.Tensor):
         """signal (B, L, signal_dim) -> (base_out, logits), the base in its
         eval form (running-statistics BatchNorm for raw-ctcnet)."""
-        base_out = self.model_base(signal)
+        base_out = self.eval_base()(signal)
         return base_out, self.model_ctc(base_out)
 
     def forward(self, signal: torch.Tensor) -> torch.Tensor:
@@ -184,40 +220,52 @@ class Model(nn.Module):
 
 class Dataset:
     """Datatype-dispatching loader (facade.py:149-236) with the same keyword
-    defaults. ``pore`` is ported: the training stream, a separate infinite
-    validation stream on seed + 10**6, and static shapes (signals padded to
-    the longest possible, so every batch has one shape). The other
-    datatypes raise NotImplementedError."""
+    defaults. ``pore``, ``raw-pore``, ``gauss`` and ``raw-gauss`` are
+    ported: the training stream, a separate infinite validation stream on
+    seed + 10**6, and with ``static_shapes`` (the default) signals and
+    labels padded to the longest possible, so every batch has one shape.
+    ``hdf5`` is not ported yet (ROADMAP A9); ``raw-hdf5`` is unsupported,
+    as in the JAX package and the reference."""
 
     DATATYPES = ("pore", "gauss", "hdf5", "raw-pore", "raw-gauss", "raw-hdf5")
 
     def __init__(self, datatype: str, dataset: Optional[str] = None, **kw):
         if datatype not in self.DATATYPES:
             raise ValueError(f"unknown datatype {datatype!r}")
-        if datatype != "pore":
+        if datatype == "hdf5":
             raise NotImplementedError(
-                f"datatype {datatype!r} is not ported yet (ROADMAP A9: the gauss, "
-                f"raw and hdf5 loaders); the port trains on 'pore'")
+                "datatype 'hdf5' is not ported yet (ROADMAP A9: QueueLoader, "
+                "BucketedLoader); the port trains on pore, raw-pore, gauss and raw-gauss")
+        if datatype == "raw-hdf5":
+            raise NotImplementedError("raw-hdf5 currently unsupported "
+                                      "(matches reference Dataset.py:57-58)")
         self.datatype = datatype
         p = dict(max_iters=kw.get("max_iters", 1000), num_epochs=kw.get("num_epochs", 1),
                  epoch_size=kw.get("epoch_size", 1000))
         p_valid = dict(max_iters=2 ** 62, num_epochs=2 ** 30, epoch_size=p["epoch_size"])
         seed = kw.get("seed")
         vseed = None if seed is None else seed + 10 ** 6
+        common = dict(batch_size=kw.get("batch_size", 8),
+                      lengths=(kw.get("min_length", 90), kw.get("max_length", 100)))
+        upsampling = kw.get("upsampling", 4)
 
         def make(pp, s):
-            return PoreModelLoader(
-                **pp, batch_size=kw.get("batch_size", 8),
-                num_levels=kw.get("num_levels", 256),
-                lengths=(kw.get("min_length", 90), kw.get("max_length", 100)),
-                pore_width=kw.get("pore_width", 4), sample_rate=kw.get("upsampling", 4),
-                currents_dict=DEFAULT_CURRENTS, sample_noise=kw.get("sample_noise", 2.0),
-                seed=s)
+            if datatype in ("pore", "raw-pore"):
+                return PoreModelLoader(
+                    **pp, **common, num_levels=kw.get("num_levels", 256),
+                    pore_width=kw.get("pore_width", 4), sample_rate=upsampling,
+                    currents_dict=DEFAULT_CURRENTS, sample_noise=kw.get("sample_noise", 2.0),
+                    raw_signal=datatype == "raw-pore", seed=s)
+            if datatype == "gauss":
+                return GaussianModelLoader(**pp, **common, num_levels=kw.get("num_levels", 256),
+                                           upsampling=upsampling, seed=s)
+            return RawGaussianModelLoader(**pp, **common, upsampling=upsampling, seed=s)
 
         self.data, self.valid_data = make(p, seed), make(p_valid, vseed)
-        for ld in (self.data, self.valid_data):
-            ld.pad_to = ld.max_signal_length
-            ld.labels_pad_to = ld.max_label_length
+        if kw.get("static_shapes", True):
+            for ld in (self.data, self.valid_data):
+                ld.pad_to = ld.max_signal_length
+                ld.labels_pad_to = ld.max_label_length
 
     @property
     def signal_channels(self) -> int:
@@ -227,3 +275,51 @@ class Dataset:
         """The next batch of a stream; StopIteration when the training
         stream's max_iters or num_epochs is reached."""
         return (self.valid_data if train_or_valid == "valid" else self.data).fetch()
+
+
+class Decoder:
+    """'argmax' or 'beam' decoding of (B, T, C) logits to strings
+    (facade.py:239-310). Beam engines: 'device', the batched prefix beam
+    search of ``decoding.ctc_beam_device`` (the B6 kernel on a CUDA
+    tensor, its plain version on a CPU one), and 'python', the numpy
+    reference ``decoding.prefix_beam``. 'native', the host C++ decoder, is
+    not ported yet (ROADMAP A10). ``prune`` keeps a frame's top-K labels as
+    extension candidates (device engine only; None is exact)."""
+
+    def __init__(self, decoder: str = "argmax", beam_width: int = 7, blank: int = 0,
+                 engine: str = "device", prune: Optional[int] = None):
+        if decoder not in ("argmax", "beam"):
+            raise ValueError(f"unknown decoder {decoder!r}")
+        if engine not in ("device", "native", "python"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine == "native":
+            raise NotImplementedError("the native C++ beam engine is not ported yet "
+                                      "(ROADMAP A10); use engine='device' or 'python'")
+        self.decoder_type, self.beam_width, self.blank = decoder, beam_width, blank
+        self.engine, self.prune = engine, prune
+
+    def decode(self, logits, lengths=None, return_times: bool = False):
+        """logits (B, T, C), a tensor (on any device) or an array; lengths
+        (B,) valid frames (default T). -> (scores, strings[, times]):
+        scores None for argmax; times, one list a sequence of the frame at
+        which each label was emitted, from the device engine only."""
+        if self.decoder_type == "argmax":
+            if return_times:
+                raise ValueError("times are a beam-engine output")
+            return None, greedy_ctc_decode(torch.as_tensor(logits), lengths, self.blank)
+        if self.engine == "python":
+            if return_times:
+                raise ValueError("times need the 'device' engine")
+            logits = logits.detach().cpu().numpy() if torch.is_tensor(logits) else logits
+            results, scores = beam_search_decode(np.asarray(logits), self.beam_width,
+                                                 self.blank, lengths)
+            return scores, labels2strings(results)
+        prefixes, plens, scores, times = ctc_beam_search(
+            torch.as_tensor(logits), lengths, beam_width=self.beam_width, blank=self.blank,
+            return_times=True, prune=self.prune)
+        prefixes, plens, times = (x.cpu().numpy() for x in (prefixes, plens, times))
+        out = ([float(s) for s in scores[:, 0].cpu()],
+               labels2strings([prefixes[b, 0, :plens[b, 0]] for b in range(len(plens))]))
+        if return_times:
+            out += ([times[b, 0, :plens[b, 0]].tolist() for b in range(len(plens))],)
+        return out

@@ -15,6 +15,10 @@ Non-causal blocks (the default) run the composite; with ``causal=True`` the
 blocks run the fused block, which is its kernel on the card. The JAX
 package's sequence-sharded featurizer (raw_ctcnet.py:125-140) is not
 ported: under ``parallel.halo.seq_axis`` the forward raises.
+
+It trains behind ``facade.BatchNorm1d`` through the joint step with
+``JointLoss("ctc")`` (the CLI's raw-ctcnet), or alone through
+``training.make_ctc_train_step``.
 """
 from __future__ import annotations
 

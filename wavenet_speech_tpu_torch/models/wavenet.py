@@ -43,6 +43,11 @@ class WaveNet(nn.Module):
         for m in (self.entry, self.stack, self.out1, self.out2):
             m.reset_parameters(generator)
 
+    def update_state(self, old_params, new_params, *inputs):
+        """The train step's hook for non-gradient state: WaveNet holds
+        none, so new_params as they are."""
+        return new_params
+
     def forward(self, signal):
         """signal (B, L, in_dim) -> (B, L, out_dim), softmaxed if
         self.softmax."""

@@ -1,4 +1,4 @@
-"""Train state and the joint train and eval steps
+"""Train state, the joint and CTC-only train steps, and the eval step
 (wavenet_speech_tpu/training/trainer.py).
 
 The step is functional, as in JAX: ``step_fn(state, batch) -> (state,
@@ -31,12 +31,16 @@ buffer) before the skip guard, so the guard, the norm and the optimizer
 run on the same values on every rank: all ranks skip together and their
 params stay identical.
 
-Not ported yet: training RawCTCNet (``make_ctc_train_step``, BatchNorm's
-``update_state``, ROADMAP A8: both steps refuse a module that carries
-``not_trainable``, as the raw-ctcnet pair's BatchNorm1d does),
-tensor parallelism (a mesh whose "model" axis is > 1 raises), and the JAX
-options ``donate`` and ``scan_unroll``, which have no meaning in an eager
-loop.
+The joint step trains either pair of ``facade.Model``: after the optimizer
+update it calls the base model's ``update_state`` (a no-op for WaveNet;
+``facade.BatchNorm1d``'s running-statistics EMA for raw-ctcnet), as JAX's
+does. ``make_ctc_train_step`` trains one CTC network (RawCTCNet) alone.
+
+Not ported yet: tensor parallelism (a mesh whose "model" axis is > 1
+raises), and BatchNorm statistics over data-parallel ranks (a base with
+running statistics on a mesh of more than one rank raises; ROADMAP A12).
+The JAX options ``donate`` and ``scan_unroll`` have no meaning in an eager
+loop and are not taken.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from wavenet_speech_tpu_torch.ops.ctc import ctc_loss_per_seq
 from wavenet_speech_tpu_torch.parallel.collectives import all_reduce_sum
 from wavenet_speech_tpu_torch.parallel.halo import seq_axis
 from wavenet_speech_tpu_torch.parallel.mesh import Mesh
@@ -113,15 +118,6 @@ def _cast(tree, dtype):
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
-def _check_trainable(*models: nn.Module) -> None:
-    """Refuse a model whose training is not ported (its ``not_trainable``
-    says why)."""
-    for m in models:
-        why = getattr(m, "not_trainable", None)
-        if why:
-            raise NotImplementedError(why)
-
-
 def _check_mesh(mesh: Optional[Mesh]) -> None:
     if mesh is not None and mesh.axis_size("model") > 1:
         raise NotImplementedError("tensor parallelism over the 'model' axis is not "
@@ -171,6 +167,55 @@ def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
     return total, (torch.zeros((), device=ctc.device) if xe is None else xe), ctc
 
 
+def _guarded_update(state: TrainState, total, grads, tx: GradientTransformation):
+    """The skip guard and the optimizer update (trainer.py:168-182):
+    all_finite and global_norm_safe, not the finiteness of a naive norm,
+    which overflows f32 on finite gradients past ~1.8e19 and would freeze
+    training. A step whose loss or gradients hold a non-finite value leaves
+    params and optimizer state as they were. Returns (params, opt_state,
+    grad_norm, ok)."""
+    gnorm = global_norm_safe(grads)
+    ok = torch.isfinite(total) & all_finite(grads)
+    grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
+    updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
+    updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
+    opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
+                         state.opt_state)
+    return apply_updates(state.params, updates), opt_state, gnorm, ok
+
+
+def _leaves_with_grad(params):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    return leaves, tree_unflatten(params, leaves)
+
+
+def _grads(total, params, leaves):
+    # a leaf that reaches no output (the last block's residual projection,
+    # BatchNorm's running statistics) gets zero gradients
+    return tree_unflatten(params, list(torch.autograd.grad(
+        total, leaves, allow_unused=True, materialize_grads=True)))
+
+
+def _multi_step(step_fn, steps_per_call: int, multi_same_batch: bool):
+    """run(state, batch): the batch moved to the params' device, then
+    steps_per_call steps, on the same batch with multi_same_batch, else on
+    batches stacked on a leading axis; the metrics then come back stacked
+    (K,)."""
+
+    def run(state: TrainState, batch):
+        batch = _batch_to(batch, tree_leaves(state.params)[0].device)
+        if steps_per_call == 1:
+            return step_fn(state, batch)
+        history = []
+        for i in range(steps_per_call):
+            state, m = step_fn(state, batch if multi_same_batch
+                               else {k: v[i] for k, v in batch.items()})
+            history.append(m)
+        return state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
+
+    return run
+
+
 def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
                           tx: GradientTransformation,
                           loss: Optional[JointLoss] = None,
@@ -190,7 +235,10 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
 
     A step whose loss or gradients hold a non-finite value is skipped:
     params and optimizer state carry through unchanged, the step count
-    still advances, and ``skipped_nonfinite`` is 1.
+    still advances, and ``skipped_nonfinite`` is 1. Then, on every step,
+    ``base_model.update_state(old base params, new base params, signal)``
+    recomputes the base's non-gradient leaves (BatchNorm's running
+    statistics) from the pre-update ones and the uncast signal.
 
     steps_per_call=K runs K steps a call: on the same batch with
     multi_same_batch, else on K batches stacked on a leading axis; the
@@ -202,45 +250,72 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
 
     Returns step_fn(state, batch) -> (state, metrics)."""
     loss = loss or JointLoss("joint")
-    _check_trainable(base_model, ctc_model)
     _check_mesh(mesh)
+    if mesh is not None and mesh.size > 1 and getattr(base_model, "running_statistics", False):
+        raise NotImplementedError("BatchNorm running statistics over data-parallel ranks "
+                                  "are not ported (ROADMAP A12)")
 
     def step_fn(state: TrainState, batch) -> tuple:
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
+        leaves, params = _leaves_with_grad(state.params)
         total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params, batch,
                                          logit_length_fn, compute_dtype, mesh)
-        # the last block's residual projection reaches no output: zero grads
-        grads = all_reduce_grads(tree_unflatten(state.params, list(torch.autograd.grad(
-            total, leaves, allow_unused=True, materialize_grads=True))), mesh)
-        # the skip guard (trainer.py:168-182): all_finite and global_norm_safe,
-        # not the finiteness of a naive norm, which overflows f32 on finite
-        # gradients past ~1.8e19 and would freeze training
-        gnorm = global_norm_safe(grads)
-        ok = torch.isfinite(total) & all_finite(grads)
-        grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
-        updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
-        updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
-        opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
-                             state.opt_state)
-        new_params = apply_updates(state.params, updates)
+        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh)
+        new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx)
+        # non-gradient state (BatchNorm's running statistics), from the
+        # pre-update leaves and the uncast signal, on a skipped step too
+        new_params = dict(new_params, base=base_model.update_state(
+            state.params["base"], new_params["base"], batch["signal"]))
         metrics = {"xe_loss": xe.detach(), "ctc_loss": ctc.detach(),
                    "total_loss": total.detach(), "grad_norm": gnorm,
                    "skipped_nonfinite": (~ok).to(torch.int32)}
         return TrainState(new_params, opt_state, state.step + 1), metrics
 
-    def run(state: TrainState, batch):
-        batch = _batch_to(batch, tree_leaves(state.params)[0].device)
-        if steps_per_call == 1:
-            return step_fn(state, batch)
-        history = []
-        for i in range(steps_per_call):
-            state, m = step_fn(state, batch if multi_same_batch
-                               else {k: v[i] for k, v in batch.items()})
-            history.append(m)
-        return state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
+    return _multi_step(step_fn, steps_per_call, multi_same_batch)
 
-    return run
+
+def make_ctc_train_step(model: nn.Module, tx: GradientTransformation,
+                        average_per_logit: bool = True, use_logit_lengths: bool = False,
+                        length_fn: Optional[Callable] = None, compute_dtype=None,
+                        preprocess: Optional[Callable] = None, steps_per_call: int = 1,
+                        multi_same_batch: bool = False):
+    """The CTC-only step of one network, e.g. RawCTCNet (trainer.py:
+    199-274), over its params {name: tensor} (its state dict's keys).
+    batch: "signal" (B, L, C), "labels", "label_lengths" and, with
+    use_logit_lengths, "signal_lengths".
+
+    average_per_logit divides the batch-summed CTC by T (the reference's
+    per-logit average); use_logit_lengths takes each sequence's logit
+    length as length_fn(signal_lengths) (default: all T frames);
+    compute_dtype casts params and signal inside the differentiated
+    function, as in make_joint_train_step; preprocess maps the signal in
+    its input dtype before that cast (e.g. ``ops.norm.batch_standardize``
+    for raw pico-amp signals). The skip guard, steps_per_call and
+    multi_same_batch are the joint step's. Returns
+    step_fn(state, batch) -> (state, metrics)."""
+
+    def step_fn(state: TrainState, batch) -> tuple:
+        leaves, params = _leaves_with_grad(state.params)
+        signal = batch["signal"]
+        if preprocess is not None:
+            signal = preprocess(signal)
+        logits = functional_call(model, _cast(params, compute_dtype),
+                                 (_cast(signal, compute_dtype),))
+        B, T = logits.shape[:2]
+        if use_logit_lengths and length_fn is not None:
+            logit_lengths = length_fn(batch["signal_lengths"])
+        else:
+            logit_lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
+        total = ctc_loss_per_seq(logits, logit_lengths, batch["labels"],
+                                 batch["label_lengths"]).sum()
+        if average_per_logit:
+            total = total / T
+        new_params, opt_state, gnorm, ok = _guarded_update(
+            state, total, _grads(total, state.params, leaves), tx)
+        metrics = {"ctc_loss": total.detach(), "total_loss": total.detach(),
+                   "grad_norm": gnorm, "skipped_nonfinite": (~ok).to(torch.int32)}
+        return TrainState(new_params, opt_state, state.step + 1), metrics
+
+    return _multi_step(step_fn, steps_per_call, multi_same_batch)
 
 
 def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
@@ -252,7 +327,6 @@ def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
     mesh, on this rank's shard, the global metrics on every rank. Returns
     eval_fn(params, batch) -> metrics."""
     loss = loss or JointLoss("joint")
-    _check_trainable(base_model, ctc_model)
     _check_mesh(mesh)
 
     def eval_fn(params, batch) -> Metrics:
