@@ -4,7 +4,11 @@ one NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
+It sets torch's own numerics (cuDNN TF32 on, nondeterministic cuDNN), then
+checks that the port's first entry point turned them to the port's (full
+float32, deterministic cuDNN; utils/device.py), that every phase left them
+so, and that each rank of phase 8 gets them from make_mesh. It builds the
+port's CUDA kernels from ``wavenet_speech_tpu_torch/csrc``
 (and prints ptxas's registers, spills, injected waits and serialized
 wgmma of the tensor-core kernels, float32 and bf16, and of the CTC and
 beam kernels), then, at the full width of the bench model (WaveNet
@@ -68,8 +72,8 @@ from a seed; B=8 one-hot reads of L=4505):
   8. trains on 2 ranks of one torch.distributed world (run_ranks; gloo,
      both on this card, the P2P staged through host memory), the bench
      model and batch padded to L=4608, length-aware (T=1152, 1126 live
-     frames), Adagrad 3e-5, TF32 off, res_w scaled as in 4. SP on a
-     (data=1, seq=2) mesh: (b) with the depth cut to 3+2 blocks the loss
+     frames), Adagrad 3e-5, the port's numerics, res_w scaled as in 4. SP
+     on a (data=1, seq=2) mesh: (b) with the depth cut to 3+2 blocks the loss
      within 1e-5 and every gradient leaf within 1e-4 (relative norm) of the
      single-device kernel step; (c) at full depth the loss within 1e-4 and
      the gradients within SENS_FACTOR x the cuDNN composite's distance; the
@@ -115,14 +119,39 @@ from a seed; B=8 one-hot reads of L=4505):
      stream rebuilt from the seed; (c) B1 and B2 at this shape (J=179, one
      block a sequence) against their plain loops on the real step's inputs;
      (d) make_ctc_train_step with preprocess=batch_standardize, 3 steps on
-     the kernels against 3 on the plain CTC (res_w scaled as in 4), held to
-     the gap between two plain runs, and a small model's steps against the
-     CPU's; (e) the evaluate command on (a)'s run, decoder beam (B6 once a
-     batch) and argmax: the printed loss equal to the eval step on the same
-     held-out batches, the identity to that of beam_search_ref's decode, to
-     which B6 is held row for row; (f) the train step's and eval step's ms,
-     the loop's samples/s, the decode's ms a batch, B1/B2/B6 against their
-     bounds, and the peak memory.
+     the kernels against 3 on the plain CTC (res_w scaled as in 4): two
+     plain runs equal to the bit, the kernel steps' first gradients, params,
+     updates and Adamax's mu within 1e-4 of the plain steps'; a small
+     model's steps against the CPU's; (e) the evaluate command on (a)'s
+     run, decoder beam (B6 once a batch) and argmax: the printed loss
+     equal to the eval step on the same held-out batches, the identity to
+     that of beam_search_ref's decode, to which B6 is held row for row;
+     (f) the train step's and eval step's ms, the loop's samples/s, the
+     decode's ms a batch, B1/B2/B6 against their bounds, and the peak
+     memory; (g) two 10-step train runs from the
+     config's seed in fresh run directories: checkpoints equal to the bit.
+     Phases 6, 7 and 10 also time their train step with cudnn.deterministic
+     switched off for that timing only: the price of the port's setting.
+ 11. runs the HDF5 read path. The card's machine has no h5py: the reads
+     are written with h5py where it imports, else a stand-in h5py module
+     serves them from memory (this script only; the port's QueueLoader,
+     Dataset("hdf5") and CLI run unchanged). (a) the port's ecoli_worker_fn
+     rebuilds tests/golden/realread_window.npz bit for bit from this
+     script's copy of tools/make_synthetic_reads.make_read; (b) the
+     real-read overfit of tests/test_realread_overfit.py in float32 (B4 and
+     B5 at C=32 held, then launched 3 times a step, B1/B2 once): it must
+     cross per-char CTC 0.3 and greedy-decode the bases exactly; on a read
+     set of 8 reads x 4000 events, (c) configs/ecoli_hdf5_quality.json as
+     it stands (15 + 15 blocks, bf16, 4 workers, K=5 steps a call on
+     (5, 8, 1216) int32 levels) through train for 20 steps and a resume to
+     40, launches, no StopIteration before max_iters, no producer thread
+     left; B4-bf16/B5-bf16 at its 15 blocks and B1/B2 at its length-aware
+     CTC against their plain versions; (d) a levels step and its one-hot
+     step equal to the bit; (e) the evaluate command (beam W=7): B6 once a
+     batch, the printed loss and identity equal to their recomputation on
+     the batches it drew, B6 held row for row; (f) the worker's, the
+     copies', the K=5 call's and the validation forward's times, the loop,
+     the producers and the peak memory.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -134,6 +163,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -142,7 +172,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -152,7 +184,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from wavenet_speech_tpu_torch import cli
-from wavenet_speech_tpu_torch.data.prefetch import batch_to_device
+from wavenet_speech_tpu_torch.data.common import Batch, MuLawQuantizer
+from wavenet_speech_tpu_torch.data.gaussian_kmer import DEFAULT_KMER_MODEL, kmer_ids
+from wavenet_speech_tpu_torch.data.hdf5 import ecoli_worker_fn
+from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
 from wavenet_speech_tpu_torch.decoding import ctc_beam_device, streaming
 from wavenet_speech_tpu_torch.decoding.alignment import batch_identity
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
@@ -261,6 +296,48 @@ PAD_BLOCK = (2, 300, 6, 10, 9, 7)
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the port's CUDA numerics (wavenet_speech_tpu_torch/utils/device.py), and
+# torch's defaults, which main() sets before the port's first entry point
+PORT_NUMERICS = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+                 "cudnn.deterministic": True, "cudnn.benchmark": False}
+TORCH_DEFAULTS = {"cudnn.allow_tf32": True, "cuda.matmul.allow_tf32": False,
+                  "cudnn.deterministic": False, "cudnn.benchmark": False}
+_NUMERICS_FLAGS = {"cudnn.allow_tf32": (torch.backends.cudnn, "allow_tf32"),
+                   "cuda.matmul.allow_tf32": (torch.backends.cuda.matmul, "allow_tf32"),
+                   "cudnn.deterministic": (torch.backends.cudnn, "deterministic"),
+                   "cudnn.benchmark": (torch.backends.cudnn, "benchmark")}
+
+
+def numerics():
+    return {k: getattr(obj, name) for k, (obj, name) in _NUMERICS_FLAGS.items()}
+
+
+def check_numerics(where):
+    if numerics() != PORT_NUMERICS:
+        raise AssertionError(f"{where}: CUDA numerics {numerics()}, not the port's "
+                             f"{PORT_NUMERICS}")
+
+
+def price_determinism(label, fn, reps=5):
+    """fn's ms (host clock, synchronised, mean of reps after a warm call)
+    under the port's numerics and with cudnn.deterministic off, toggled here
+    for this timing only, in turns: on, off, off, on."""
+    ms = {True: [], False: []}
+    try:
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            fn()
+            ms[det].append(host_ms(fn, reps)[0])
+    finally:
+        torch.backends.cudnn.deterministic = True
+    on, off = (sum(ms[k]) / 2 for k in (True, False))
+    log(f"{label}, the price of deterministic cuDNN: {on:.3f} ms with it (the port's "
+        f"setting; {ms[True][0]:.3f}, {ms[True][1]:.3f}), {off:.3f} ms without "
+        f"({ms[False][0]:.3f}, {ms[False][1]:.3f}): {on / off - 1:+.1%} (host clock, "
+        f"synchronised, mean of {reps} after a warm call, in turns with, without, without, "
+        f"with)")
 
 
 def cfg_full_width():
@@ -850,12 +927,14 @@ def check_close(name, got, want, rtol, atol):
     return err
 
 
-def phase_ctc(lp, skip, logits, batch):
+def phase_ctc(lp, skip, logits, batch, lens=None):
     """B1 and B2 against their plain versions on the real step's extended
-    log-probs, the cotangent d loss / d ll = -1/T of JointLoss; the port's
-    CTC against F.ctc_loss (loss and gradient), the yardstick."""
+    log-probs and logit lengths (default every frame), the cotangent
+    d loss / d ll = -1/T of JointLoss; the port's CTC against F.ctc_loss
+    (loss and gradient), the yardstick."""
     T, Bx, J = lp.shape
-    lens = torch.full((Bx,), T, dtype=torch.int32, device=lp.device)
+    if lens is None:
+        lens = torch.full((Bx,), T, dtype=torch.int32, device=lp.device)
     lab, labels = batch["label_lengths"], batch["labels"]
     cot = torch.full((Bx,), -1.0 / T, device=lp.device)
     got = ctc_fwd(lp, skip, lens, lab)
@@ -897,7 +976,7 @@ def phase_ctc(lp, skip, logits, batch):
     lib_loss = F.ctc_loss(lp_lib, *lib_args, reduction="sum")
     lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_loss, lp_lib, retain_graph=True), 5)
     states = T * Bx * J
-    live = int(lens.clamp(max=T).sum()) * J     # every frame is live here
+    live = int(lens.clamp(max=T).sum()) * J
     # a live state: two logaddexps (max, sub, abs, exp, log1p, add) and two
     # adds for B1; B2 adds the occupancy (add, sub, exp, mul)
     ops1, ops2 = 14 * live, 18 * live
@@ -1356,6 +1435,7 @@ def run_training_bf16(dev):
     del blocks_io
     step, tx, state, launches = phase_train_steps_bf16(model, batch)
     time_training(model, step, tx, state, batch, BF16)
+    price_determinism("phase 6 bf16 train step (B=8, L=4505)", lambda: step(state, batch))
     for dils, hold in CUT_DEPTHS:
         phase_bf16_cut_depth(dev, batch, dils, hold)
     return kernels
@@ -1460,6 +1540,8 @@ def cli_parts(cfg, dev, ckpt_dir):
 
     one_step()
     step_ms, _ = host_ms(one_step, 10)
+    price_determinism(f"phase 7 train step (bf16, B={b.signal.shape[0]}, L={b.signal.shape[1]})",
+                      one_step)
     eval_ms, _ = host_ms(lambda: eval_fn(box[0].params, batch), 10)
     save_ms, _ = host_ms(lambda: save_checkpoint(str(ckpt_dir), box[0], async_save=True))
     wait_for_async_saves(str(ckpt_dir))
@@ -1664,9 +1746,8 @@ def sp_rank(device):
     (a) B3 against its plain version, (e) times; then DP on a (data=2,
     seq=1) mesh: B4/B5 against their plain versions on the rank's reads,
     (d) 3 steps, B1/B2 of their first against their plain versions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(data=1, seq=SP_RANKS, device=device)
+    check_numerics(f"SP rank {mesh.rank} after make_mesh")
     dev = mesh.device
     batch_g = sp_batch(dev)
     batch = shard_batch(mesh, batch_g, seq_keys=("signal",))
@@ -2348,59 +2429,105 @@ def gauss_step_inputs(model, state, batch):
 def ctc_step_run(net, params, batch, plain):
     """3 steps of make_ctc_train_step (preprocess=batch_standardize, Adamax)
     from params; plain routes the CTC through B1's and B2's plain loops.
-    Returns (state, the first step's launches)."""
+    Returns (state, metrics, the first step's launches, the first step's
+    gradient leaves as they reach the optimizer)."""
     tx = build_optimizer("adamax", GAUSS_LR)
     step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
     state = TrainState.create(params, tx)
-    with (ctc_plain() if plain else contextlib.nullcontext()):
+    grads, guarded = [], trainer._guarded_update
+
+    def record(st, total, g, tx_):
+        if not grads:
+            grads.append([t.clone() for t in tree_leaves(g)])
+        return guarded(st, total, g, tx_)
+
+    with (ctc_plain() if plain else contextlib.nullcontext()), \
+            mock.patch.object(trainer, "_guarded_update", record):
         state, hist, launches = train_steps(step, state, batch,
                                             None if plain else {"ctc_alpha": 1, "ctc_beta": 1})
     if plain and launches:
         raise AssertionError(f"(d) the plain CTC steps launched {launches}")
-    return state, hist, launches
+    return state, hist, launches, grads[0]
 
 
 def phase_ctc_step(dev, batch):
     """(d) make_ctc_train_step at full width, res_w scaled as in phase 4: 3
-    steps on B1/B2, and twice 3 steps on their plain loops. The steps differ
-    only in the CTC, whose kernels match the plain loops, so the kernel
-    steps' params lie within STEP_PARAM_RTOL of the plain steps', and their
-    updates within SENS_FACTOR x the gap between the two plain runs (cuDNN's
-    backward may sum in another order from one call to the next), or
-    STEP_PARAM_RTOL where the plain runs agree to the bit. The params alone
-    cannot show a B2 that scales every gradient by one constant (Adamax's
-    updates are lr * sign(g) at first, then ratios the scale cancels from),
-    so Adamax's first moment mu, linear in the gradients, is held to the
-    plain steps' within STEP_PARAM_RTOL, or SENS_FACTOR x the plain runs'
-    gap where that is larger. Then a small model's 3 steps on the card
-    against the CPU's."""
+    steps on B1/B2, and twice 3 steps on their plain loops. Under the
+    port's numerics (deterministic cuDNN) the two plain runs must agree to
+    the bit: params, Adamax's first moment mu, the first step's gradients
+    and the losses (C2). The steps differ only in the CTC, whose kernels
+    match the plain loops, so the kernel steps' first gradient tree (before
+    the optimizer: a B2 that scales every gradient by one constant shows
+    there, and in mu, where Adamax's sign-like updates hide it), their
+    params, their updates and their mu lie within STEP_PARAM_RTOL of the
+    plain steps'. Then a small model's 3 steps on the card against the
+    CPU's."""
     _, model = gauss_model(dev)
     net = model.model_ctc
     p0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    kstate, khist, launches = ctc_step_run(net, p0, batch, False)
-    pstate, phist, _ = ctc_step_run(net, p0, batch, True)
-    qstate, _, _ = ctc_step_run(net, p0, batch, True)
+    kstate, khist, launches, gk = ctc_step_run(net, p0, batch, False)
+    pstate, phist, _, gp = ctc_step_run(net, p0, batch, True)
+    qstate, qhist, _, gq = ctc_step_run(net, p0, batch, True)
     l0, lk, lp_, lq = (tree_leaves(x) for x in (p0, kstate.params, pstate.params,
                                                  qstate.params))
-    dp = lambda ps: [a - b for a, b in zip(ps, l0)]
-    param_err = rel_err(lk, lp_)
-    upd_k, upd_q = rel_err(dp(lk), dp(lp_)), rel_err(dp(lq), dp(lp_))
-    bound = SENS_FACTOR * upd_q if upd_q > 0 else STEP_PARAM_RTOL
     mu = lambda st: tree_leaves(st.opt_state[0][0]["mu"])  # build_optimizer("adamax")
-    mu_k, mu_q = rel_err(mu(kstate), mu(pstate)), rel_err(mu(qstate), mu(pstate))
-    mu_bound = max(STEP_PARAM_RTOL, SENS_FACTOR * mu_q)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    if not (same(lp_, lq) and same(mu(pstate), mu(qstate)) and same(gp, gq)
+            and phist == qhist):
+        raise AssertionError(
+            f"(d) two plain-CTC runs from one params and batch differ (C2): params "
+            f"{rel_err(lq, lp_):.3e}, mu {rel_err(mu(qstate), mu(pstate)):.3e}, step 1's "
+            f"gradients {rel_err(gq, gp):.3e}, losses {phist} vs {qhist}")
+    dp = lambda ps: [a - b for a, b in zip(ps, l0)]
+    errs = {"step 1's gradients": (rel_err(gk, gp), same(gk, gp)),
+            "params": (rel_err(lk, lp_), same(lk, lp_)),
+            "updates": (rel_err(dp(lk), dp(lp_)), same(lk, lp_)),
+            "Adamax's mu": (rel_err(mu(kstate), mu(pstate)), same(mu(kstate), mu(pstate)))}
     loss_err = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
                    for a, b in zip(khist, phist))
     log(f"(d) make_ctc_train_step (preprocess=batch_standardize, Adamax {GAUSS_LR}, res_w "
         f"scaled), 3 steps: launches a step {launches}; losses "
-        f"{[round(h['total_loss'], 5) for h in khist]}; against the plain CTC's 3: params "
-        f"{param_err:.3e} (bound {STEP_PARAM_RTOL}), updates {upd_k:.3e} (bound {bound:.3e}: "
-        f"two plain runs differ by {upd_q:.3e}), Adamax's mu {mu_k:.3e} (bound {mu_bound:.3e}: "
-        f"two plain runs differ by {mu_q:.3e}), max relative loss difference {loss_err:.3e}")
-    if not (param_err <= STEP_PARAM_RTOL and upd_k <= bound and mu_k <= mu_bound):
+        f"{[round(h['total_loss'], 5) for h in khist]}; two plain-CTC runs equal to the bit "
+        f"(params, mu, step 1's gradients, losses); the kernel CTC's against the plain "
+        f"CTC's (bound {STEP_PARAM_RTOL}): "
+        + ", ".join(f"{k} {e:.3e}{' (bit-equal)' if bit else ''}"
+                    for k, (e, bit) in errs.items())
+        + f", max relative loss difference {loss_err:.3e}")
+    if not all(e <= STEP_PARAM_RTOL for e, _ in errs.values()):
         raise AssertionError("(d) the kernel CTC steps differ from the plain CTC steps")
     del model, net, kstate, pstate, qstate
     small_ctc_steps(dev)
+
+
+REPRO_STEPS = 10
+
+
+def reproducible_train_runs(dev):
+    """(g) C2 end to end: cli.train_with_result on configs/gauss_quality.json
+    from its seed, REPRO_STEPS steps, twice, each in a fresh run directory;
+    the two final checkpoints must be equal to the bit."""
+    payloads, t0 = [], time.perf_counter()
+    for _ in range(2):
+        run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_repro_"))
+        try:
+            cfg = gauss_cfg(run_dir)
+            cfg["training"].update(max_iters=REPRO_STEPS, print_every=REPRO_STEPS,
+                                   save_every=REPRO_STEPS)
+            cli.train_with_result(cfg, dev)
+            payloads.append(torch.load(run_dir / "ckpts" / str(REPRO_STEPS) / "state.pt",
+                                       map_location="cpu", weights_only=True))
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+    a, b = (tree_leaves(p) for p in payloads)
+    differ = [i for i, (x, y) in enumerate(zip(a, b))
+              if not (torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+    pa, pb = (tree_leaves(p["params"]) for p in payloads)
+    if differ or len(a) != len(b):
+        raise AssertionError(f"(g) two train runs from one seed differ (C2): {len(differ)} of "
+                             f"{len(a)} checkpoint leaves, params {rel_err(pb, pa):.3e} apart")
+    log(f"(g) two {REPRO_STEPS}-step train runs of configs/gauss_quality.json from its seed, "
+        f"each in a fresh run directory: final checkpoints equal to the bit ({len(a)} leaves: "
+        f"params, Adamax's state, step; {time.perf_counter() - t0:.1f} s)")
 
 
 def small_ctc_steps(dev):
@@ -2617,6 +2744,7 @@ def run_gauss_training(dev, card):
         torch.cuda.reset_peak_memory_stats()
         step_ms = cuda_ms(one_step, 5, warmup=0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        price_determinism("phase 10 float32 train step (B=6, L=486)", one_step)
         eval_ms = cuda_ms(lambda: eval_fn(state.params, batch), 5)
         n = int(np.prod(b.signal.shape[:2]))
         log(f"(f) train_step_ms={step_ms:.3f} samples_per_s={n / step_ms * 1e3:.0f} (B=6, "
@@ -2631,6 +2759,8 @@ def run_gauss_training(dev, card):
         torch.cuda.empty_cache()
         # ---- (d) make_ctc_train_step at full width
         phase_ctc_step(dev, batch)
+        # ---- (g) two train runs from one seed
+        reproducible_train_runs(dev)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -2639,15 +2769,510 @@ def run_gauss_training(dev, card):
                 b2=dict(b2, launches=counts["ctc_beta"], shape=shape), b6=b6)
 
 
+# ---- 11. the HDF5 read path: configs/ecoli_hdf5_quality.json -------------------
+
+ECOLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5_quality.json"
+REALREAD = Path(__file__).resolve().parent / "tests" / "golden" / "realread_window.npz"
+# tests/make_golden_realread.py: the read and the worker's windows
+READ_SEED, WORKER_SEED, REALREAD_EVENTS = 123, 5, 400
+REALREAD_SAMPLE_LENGTHS, REALREAD_BATCH = (16, 20), 2
+# tests/test_realread_overfit.py: 32 channels, Adam 2e-3, per-char CTC criteria
+OVERFIT_C, OVERFIT_LR, OVERFIT_MAX_STEPS = 32, 2e-3, 2500
+OVERFIT_CROSS, OVERFIT_STOP = 0.3, 0.02
+# the read set: 8 reads x 4000 events at 256 levels, 4-11 samples an event, so
+# every window of 90-110 events fits pad_to 1216 and its labels 120
+ECOLI_READS, ECOLI_EVENTS = 8, 4000
+ECOLI_STEPS, ECOLI_PRINT, ECOLI_EVAL_BATCHES = 20, 10, 4
+
+
+def make_read(rng, n_events, means, stdvs, num_levels, dwell=(4, 12)):
+    """tools/make_synthetic_reads.make_read on the port's MuLawQuantizer and
+    kmer_ids: one read's reference bases, event positions and per-event
+    quantized sample chunks."""
+    bases = rng.integers(1, 5, size=n_events + 8).astype(np.int32)
+    ks = kmer_ids(bases, trim=0)[:n_events]
+    dwells = rng.integers(dwell[0], dwell[1], size=n_events)
+    picoamps = rng.normal(np.repeat(means[ks], dwells), np.repeat(stdvs[ks], dwells))
+    quant = MuLawQuantizer(num_levels)(picoamps).astype(np.int64)
+    return bases, np.arange(n_events, dtype=np.int64), np.split(quant, np.cumsum(dwells)[:-1])
+
+
+def make_reads(seed, n_reads, n_events):
+    """n_reads reads from one generator, as tools/make_synthetic_reads.py
+    writes them."""
+    npz = np.load(DEFAULT_KMER_MODEL)
+    rng = np.random.default_rng(seed)
+    return [make_read(rng, n_events, npz["means"], npz["stdvs"], LEVELS)
+            for _ in range(n_reads)]
+
+
+class ReadSetFile:
+    """What the port's ecoli_worker_fn and QueueLoader use of an h5py.File
+    opened for reading (keys(), [] and close()), over reads in memory in the
+    /read_i/{quantized, raw/positions, reference} layout."""
+
+    def __init__(self, reads):
+        self.groups = {}
+        for i, (bases, positions, chunks) in enumerate(reads):
+            quantized = np.empty(len(chunks), dtype=object)
+            for j, c in enumerate(chunks):
+                quantized[j] = c
+            self.groups[f"read_{i}"] = {"quantized": quantized,
+                                        "raw": {"positions": positions}, "reference": bases}
+
+    def keys(self):
+        return self.groups.keys()
+
+    def __getitem__(self, key):
+        return self.groups[key]
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def reads_file(path, reads):
+    """A file at path holding reads in the layout of
+    tools/make_synthetic_reads.py, for the port's own ``h5py.File`` calls:
+    written with h5py where it imports; else, as on a machine without h5py,
+    a stand-in h5py module whose File(path) serves the reads from memory
+    sits in sys.modules until the block ends. Yields which of the two ran."""
+    try:
+        h5py = importlib.import_module("h5py")
+    except ImportError:
+        h5py = None
+    if h5py is not None:
+        with h5py.File(path, "w") as f:
+            for i, (bases, positions, chunks) in enumerate(reads):
+                g = f.create_group(f"read_{i}")
+                g.create_dataset("quantized", (len(chunks),),
+                                 dtype=h5py.vlen_dtype(np.dtype("int64")))[:] = chunks
+                g.create_group("raw").create_dataset("positions", data=positions)
+                g.create_dataset("reference", data=bases)
+        yield f"h5py {h5py.__version__}: a file written"
+        return
+    served, stand_in = ReadSetFile(reads), types.ModuleType("h5py")
+
+    def open_file(name, mode="r"):
+        if str(name) != str(path) or mode != "r":
+            raise OSError(f"the stand-in h5py opens only {path}, for reading")
+        return served
+
+    stand_in.File = open_file
+    sys.modules["h5py"] = stand_in
+    try:
+        yield "no h5py here: a stand-in h5py module serving the reads from memory"
+    finally:
+        del sys.modules["h5py"]
+
+
+def rebuild_fixture(tmp):
+    """(a) tests/golden/realread_window.npz rebuilt bit for bit by the port's
+    ecoli_worker_fn, through h5py.File, on the read of this script's copy of
+    make_read, as tests/make_golden_realread.py builds it."""
+    want = dict(np.load(REALREAD, allow_pickle=False))
+    path = Path(tmp) / "one_read.hdf5"
+    with reads_file(path, make_reads(READ_SEED, 1, REALREAD_EVENTS)) as how:
+        f = sys.modules["h5py"].File(str(path), "r")
+        try:
+            read, subintervals, batch = ecoli_worker_fn(
+                f, ["read_0"], np.random.default_rng(WORKER_SEED), batch_size=REALREAD_BATCH,
+                sample_lengths=REALREAD_SAMPLE_LENGTHS, num_levels=LEVELS, debug_mode=True,
+                device_onehot=True)
+        finally:
+            f.close()
+    got = dict(dataclasses.asdict(batch), subintervals=np.asarray(subintervals, np.int64))
+    bad = [k for k in want if not (got[k].dtype == want[k].dtype
+                                   and np.array_equal(got[k], want[k]))]
+    if bad:
+        raise AssertionError(f"(a) the port's worker does not rebuild the fixture: {bad}")
+    log(f"(a) tests/golden/realread_window.npz rebuilt bit for bit by the port's "
+        f"ecoli_worker_fn ({how}): {read}, subintervals {subintervals}, signal "
+        f"{got['signal'].shape} {got['signal'].dtype} levels, labels {got['labels'].shape}")
+    return want
+
+
+def hold_f32_blocks(blocks_io):
+    """B4 and B5 (float32) against their plain versions on each captured
+    block's inputs and cotangents (phases 1 and 5's tolerances); returns
+    their max abs errors."""
+    f_err = b_err = 0.0
+    with torch.no_grad():
+        for x, (gw, gb, ow, ob, rw, rb), d, dr, ds in blocks_io:
+            fw = (gw, gb, ow, ob, rw, rb)
+            err, _ = hold_b4(d, fused_gated_block(x, *fw, d), fused_gated_block_ref(x, *fw, d))
+            errs, _ = hold_b5(d, fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d),
+                              fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d))
+            f_err, b_err = max(f_err, err), max(b_err, *errs)
+    return f_err, b_err
+
+
+def overfit_realread(dev, fx):
+    """(b) tests/test_realread_overfit.py on the card, float32: the joint
+    WaveNet-CTC (256 levels, WaveNet (32, 32, 2, d) for d = 1, 2, 4, a
+    classifier of 6 such blocks, pool 1), Adam 2e-3, on the fixture's levels
+    batch, one-hot in the step; at most 2500 steps, stopping below per-char
+    CTC 0.02. It must cross 0.3 and greedy-decode the read's bases exactly.
+    B4 and B5 (float32) launch 3 times a step, B1 and B2 once; both block
+    kernels are held at C = 32 on the first step's inputs first."""
+    layers = [[OVERFIT_C, OVERFIT_C, 2, d] for d in (1, 2, 4)]
+    cfg = {"model": {"base": {"signal_dim": LEVELS, "entry_kwidth": 2, "layers": layers},
+                     "classifier": {"num_labels": LABELS, "layers": layers * 2,
+                                    "out_dim": OVERFIT_C, "downsample": 1}}}
+    model = Model("wavenet-ctc", cfg, device=dev).init(SEED)
+    batch = {k: torch.from_numpy(fx[k].astype(np.int32)).to(dev) for k in FIELDS}
+    f_err, b_err = hold_f32_blocks(capture_blocks(model, batch, None))
+    tx = build_optimizer("adam", OVERFIT_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"))
+    state = TrainState.create(model.params(), tx)
+    frames, n_labels = batch["signal"].shape[1], float(batch["label_lengths"].sum())
+    crossed = per_char = None
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OVERFIT_MAX_STEPS):
+        state, m = step(state, batch)
+        per_char = float(m["ctc_loss"]) * frames / n_labels
+        if crossed is None and per_char < OVERFIT_CROSS:
+            crossed = i + 1
+        if per_char < OVERFIT_STOP:
+            break
+    secs = time.perf_counter() - t0
+    steps = i + 1
+    launches = {k: v for k, v in read_counts().items() if v}
+    n_blocks = len(layers)
+    want = {"fused_gated_block": n_blocks * steps, "fused_gated_block_bwd": n_blocks * steps,
+            "ctc_alpha": steps, "ctc_beta": steps}
+    model.load_params(state.params)
+    with torch.no_grad():
+        decoded = greedy_ctc_decode(model(F.one_hot(batch["signal"].long(), LEVELS).float()))
+    truth = labels2strings([fx["labels"][b, :fx["label_lengths"][b]]
+                            for b in range(len(fx["labels"]))])
+    problems = [what for what, bad in (
+        (f"never crossed per-char CTC {OVERFIT_CROSS} (last {per_char})", crossed is None),
+        (f"greedy decode {decoded} != the bases {truth}", decoded != truth),
+        (f"launches {launches} != {want}", launches != want)) if bad]
+    if problems:
+        raise AssertionError("(b) real-read overfit: " + "; ".join(problems))
+    log(f"(b) real-read overfit on the card (float32, {n_blocks} + {2 * n_blocks} blocks at "
+        f"C={OVERFIT_C}, Adam {OVERFIT_LR}, B={batch['signal'].shape[0]} L={frames}): "
+        f"per-char CTC below {OVERFIT_CROSS} at step {crossed}, {steps} steps to "
+        f"{per_char:.4f} (< {OVERFIT_STOP}); greedy decode equals the read's bases; "
+        f"{secs * 1e3 / steps:.3f} ms a step, {secs:.1f} s (host clock, the per-step loss "
+        f"read included); launches {launches}; B4, B5 at C={OVERFIT_C} within phases 1/5's "
+        f"tolerances, max_abs_err {f_err:.3e}, {b_err:.3e}")
+    return dict(launches=launches, shape=f"B={batch['signal'].shape[0]} L={frames} "
+                f"C={OVERFIT_C}", steps=steps)
+
+
+def ecoli_cfg(path, run_dir):
+    """configs/ecoli_hdf5_quality.json as it stands but for the read set,
+    the run directory, 20 steps a run, a print and a checkpoint every 10,
+    and 4 batches an evaluate."""
+    cfg = json.loads(ECOLI_CONFIG.read_text())
+    cfg["training"].update(training_data=str(path), save_dir=str(run_dir),
+                           max_iters=ECOLI_STEPS, print_every=ECOLI_PRINT,
+                           save_every=ECOLI_PRINT, eval_batches=ECOLI_EVAL_BATCHES)
+    return cfg
+
+
+def producers():
+    """The live QueueLoader producer threads (named after their target)."""
+    return [t for t in threading.enumerate() if "(_producer)" in t.name]
+
+
+def recording_fetch(rec):
+    """Dataset.fetch with each call appended to rec as (stream, the batch or
+    None on StopIteration, host ms waited)."""
+    fetch = Dataset.fetch
+
+    def recorded(ds, stream="train"):
+        t0 = time.perf_counter()
+        try:
+            batch = fetch(ds, stream)
+        except StopIteration:
+            rec.append((stream, None, (time.perf_counter() - t0) * 1e3))
+            raise
+        rec.append((stream, batch, (time.perf_counter() - t0) * 1e3))
+        return batch
+
+    return mock.patch.object(Dataset, "fetch", recorded)
+
+
+def ecoli_train_runs(cfg, run_dir, dev):
+    """(c) cli.train_with_result on the config twice on one run directory:
+    20 steps, then resumed at 20 to 40. K=5 steps a call on (5, 8, 1216)
+    int32 levels, B4-bf16 15 times a train step and a validation forward
+    (4 fixed batches a print), B5-bf16 15 times a train step, B1 and B2
+    once a step (B1 once a validation forward); no StopIteration before
+    max_iters, and no producer thread alive after either run. Returns the
+    first run's launches, the runs' loop samples/s and the train fetches'
+    waits."""
+    t = cfg["training"]
+    n_blocks = len(cfg["model"]["base"]["dilations"])
+    stacked = ((t["steps_per_call"], t["batch_size"], t["pad_to"]), "int32")
+    counts, rates, waits = None, [], []
+    to_device = cli.batch_to_device
+    for run, (start, end) in enumerate(((0, ECOLI_STEPS), (ECOLI_STEPS, 2 * ECOLI_STEPS)), 1):
+        logged = len(read_jsonl(run_dir / "logs" / "metrics.jsonl")) if run > 1 else 0
+        fetched, copied = [], []
+
+        def recorded_copy(b, d):
+            copied.append((b.signal.shape, str(b.signal.dtype)))
+            return to_device(b, d)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with recording_fetch(fetched), mock.patch.object(cli, "batch_to_device", recorded_copy):
+            result = cli.train_with_result(copy.deepcopy(cfg), dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run_counts = {k: v for k, v in read_counts().items() if v}
+        counts = counts or run_counts
+        lines = read_jsonl(run_dir / "logs" / "metrics.jsonl")[logged:]
+        steps, valid = end - start, len(lines) * t["fixed_valid_batches"]
+        want = {"fused_gated_block_bf16": n_blocks * (steps + valid),
+                "fused_gated_block_bwd_bf16": n_blocks * steps,
+                "ctc_alpha": steps + valid, "ctc_beta": steps}
+        train = [(b, ms) for s, b, ms in fetched if s == "train"]
+        served = [i for i, (b, _) in enumerate(train) if b is not None]
+        early = [i for i, (b, _) in enumerate(train) if b is None and i < steps]
+        waits.extend(ms for b, ms in train if b is not None)
+        want_copies = {stacked: steps // t["steps_per_call"],
+                       (stacked[0][1:], "int32"): t["fixed_valid_batches"]}
+        got_copies = {k: copied.count(k) for k in set(copied)}
+        messages = (run_dir / "logs" / "messages.log").read_text()
+        ckpts = sorted(int(p.name) for p in (run_dir / "ckpts").iterdir() if p.name.isdigit())
+        losses = [v for l in lines for v in (l["train_loss"], l["valid_loss"])]
+        problems = [what for what, bad in (
+            (f"steps {result['steps']} != {end}", result["steps"] != end),
+            (f"launches {run_counts} != {want}", run_counts != want),
+            (f"copies to the card {got_copies} != {want_copies}", got_copies != want_copies),
+            (f"{len(early)} StopIterations before max_iters", bool(early)),
+            (f"{len(served)} train batches served", len(served) != steps),
+            (f"non-finite losses {losses}", not all(map(math.isfinite, losses))),
+            (f"{len(lines)} log lines", len(lines) != steps // ECOLI_PRINT),
+            (f"checkpoints {ckpts}", ckpts != list(range(ECOLI_PRINT, end + 1, ECOLI_PRINT))),
+            (f"producer threads alive {producers()}", bool(producers())),
+            (f"did not resume at step {ECOLI_STEPS}", run > 1 and
+             f"resumed from {run_dir}/ckpts/ @ step {ECOLI_STEPS}" not in messages))
+            if bad]
+        if problems:
+            raise AssertionError(f"(c) train, run {run}: " + "; ".join(problems))
+        rates.append(lines[-1]["samples_per_sec"])
+        log(f"(c) train run {run}: steps {start + 1}-{end} in {secs:.1f} s (model build, "
+            f"{t['nworkers']} workers' start and the last fetch's 1 s timeout included); "
+            f"copies to the card {got_copies}; loop samples_per_s {rates[-1]:.0f} (between "
+            f"the prints at steps {end - ECOLI_PRINT} and {end}); losses "
+            + ", ".join(f"step {l['step']} train {l['train_loss']:.4f} valid "
+                        f"{l['valid_loss']:.4f}" for l in lines)
+            + f"; launches {run_counts}; checkpoints {ckpts}; StopIterations before max_iters "
+            f"0; producer threads alive after the run 0")
+    return counts, rates, waits
+
+
+def levels_equal_onehot(step, state, b, dev):
+    """(d) one bf16 step on a levels batch and one on its host one-hot, from
+    one state: the same metrics and updated params, to the bit."""
+    onehot = Batch(np.eye(LEVELS, dtype=np.float32)[b.signal], b.labels, b.label_lengths,
+                   b.signal_lengths)
+    (sa, ma), (sb, mb) = (step(state, batch_to_device(x, dev)) for x in (b, onehot))
+    leaves = [(x, y) for x, y in zip(tree_leaves((sa.params, sa.opt_state)),
+                                     tree_leaves((sb.params, sb.opt_state)))]
+    differ = [k for k in ma if not torch.equal(ma[k], mb[k])] + \
+        [f"{sum(not torch.equal(x, y) for x, y in leaves)} state leaves"] * \
+        any(not torch.equal(x, y) for x, y in leaves)
+    if differ:
+        raise AssertionError(f"(d) the levels step and the one-hot step differ: {differ}")
+    log(f"(d) one bf16 step on (8, 1216) int32 levels and one on its host one-hot "
+        f"{onehot.signal.shape}: metrics and the {len(leaves)} params and Adam leaves "
+        f"equal to the bit (total_loss {float(ma['total_loss']):.6f})")
+    return onehot
+
+
+def ecoli_evaluate(cfg, run_dir, dev):
+    """(e) The evaluate command on (c)'s run, decoder beam W=7, 4 held-out
+    batches (captured as evaluate draws them: 4 producers do not fix their
+    order): B6 once a batch; the printed loss equal to the eval step on
+    those batches, the identity to that of beam_search_ref's decode of the
+    same one-hot forward, to which B6 is held row for row; the loader's
+    threads closed. Returns the launches and B6's ms at this shape."""
+    path = run_dir / "evaluate.json"
+    path.write_text(json.dumps(cfg))
+    drawn, buf = [], io.StringIO()
+    reset_counts()
+    with recording_fetch(drawn), contextlib.redirect_stdout(buf):
+        rc = cli.main(["evaluate", str(path)])
+    launches = {k: v for k, v in read_counts().items() if v}
+    alive = producers()
+    line = buf.getvalue().strip().splitlines()[-1]
+    m = re.match(r"eval loss over (\d+) batches: (\S+) \| basecall identity: (\S+)$", line)
+    if rc != 0 or not m:
+        raise AssertionError(f"(e) evaluate: rc {rc}, output {buf.getvalue()!r}")
+    batches = [b for _, b, _ in drawn if b is not None]
+    ds, model, state, _, eval_fn, _ = cli.build_from_config(copy.deepcopy(cfg), dev)
+    ds.close()
+    state = restore_checkpoint(str(run_dir / "ckpts"), state)
+    model.load_params(state.params)
+    losses, ids, err, b6_ms = [], [], 0.0, None
+    for b in batches:
+        batch = batch_to_device(b, dev)
+        losses.append(float(eval_fn(state.params, batch)["total_loss"]))
+        with torch.no_grad():
+            logits = model(F.one_hot(batch["signal"].long(), LEVELS).float())
+        lengths = torch.as_tensor(model.output_length(b.signal_lengths), dtype=torch.int32,
+                                  device=dev)
+        lp = torch.log_softmax(logits.float(), -1)
+        kw = dict(beam_width=BEAM_WIDTH, max_label_len=lp.shape[1])
+        want = beam_finalize(beam_search_ref(lp, lengths, **kw))
+        _, e = compare_beams(beam_finalize(beam_search_kernel(lp, lengths, **kw)), want,
+                             BEAM_WIDTH)
+        err = max(err, e)
+        targets = labels2strings([b.labels[r, :b.label_lengths[r]] for r in range(len(b.labels))])
+        decoded = labels2strings([want[0][r, 0, :int(want[1][r, 0])].cpu().numpy()
+                                  for r in range(len(b.labels))])
+        ids.append(batch_identity([list(d) for d in decoded], targets)[0])
+        if b6_ms is None:
+            b6_ms = cuda_ms(lambda: beam_search_kernel(lp, lengths, **kw), 5)
+            shape = f"B={lp.shape[0]} T={lp.shape[1]} C={lp.shape[2]} W={BEAM_WIDTH}"
+    n_blocks = len(cfg["model"]["base"]["dilations"])
+    n = ECOLI_EVAL_BATCHES
+    want_launches = {"fused_gated_block_bf16": n_blocks * n, "fused_gated_block": n_blocks * n,
+                     "ctc_alpha": n, "ctc_beam": n}
+    want_loss, want_ident = float(np.mean(losses)), f"{np.mean(ids):.3f}"
+    problems = [what for what, bad in (
+        (f"{m[1]} batches, {len(batches)} drawn", int(m[1]) != n or len(batches) != n),
+        (f"launches {launches} != {want_launches}", launches != want_launches),
+        (f"loss {m[2]} != the eval step's {want_loss:.6f}",
+         abs(float(m[2]) - want_loss) > EVAL_LOSS_ATOL + 1e-6 * abs(want_loss)),
+        (f"identity {m[3]} != the plain decode's {want_ident}", m[3] != want_ident),
+        (f"producer threads alive {alive}", bool(alive))) if bad]
+    if problems:
+        raise AssertionError("(e) evaluate: " + "; ".join(problems))
+    log(f"(e) evaluate, decoder beam W={BEAM_WIDTH}: {line!r}; launches {launches} (the eval "
+        f"step in bf16, the decode's forward in float32); the eval step recomputed "
+        f"{want_loss:.6f}, the identity of beam_search_ref's decode {want_ident}; B6 at "
+        f"{shape}: every live row equal to beam_search_ref's (max score error {err:.3e}), "
+        f"{b6_ms:.4f} ms; producer threads alive after it 0")
+    return launches, shape
+
+
+def ecoli_times(cfg, dev, path, onehot, rates, waits, card):
+    """(f) The worker's host ms a batch, a levels batch's copy against its
+    one-hot's, the K=5 call, the validation forward, the loop, the
+    producers, the peak memory."""
+    t = cfg["training"]
+    f = sys.modules["h5py"].File(str(path), "r")
+    try:
+        rng = np.random.default_rng(SEED)
+        keys = sorted(f.keys())
+        worker_ms, _ = host_ms(lambda: ecoli_worker_fn(
+            f, keys, rng, batch_size=t["batch_size"],
+            sample_lengths=(t["min_sample_length"], t["max_sample_length"]), num_levels=LEVELS,
+            pad_to=t["pad_to"], labels_pad_to=t["labels_pad_to"], device_onehot=True), 20)
+    finally:
+        f.close()
+    ds, model, state, (_, _, _, multi, K), eval_fn, _ = cli.build_from_config(
+        copy.deepcopy(cfg), dev)
+    try:
+        bs = [ds.fetch("train") for _ in range(K)]
+    finally:
+        ds.close()
+    levels_ms, batch = host_ms(lambda: batch_to_device(bs[0], dev), 10)
+    onehot_ms, _ = host_ms(lambda: batch_to_device(onehot, dev), 10)
+    stacked = batch_to_device(Batch(*(np.stack([getattr(b, k) for b in bs]) for k in FIELDS)),
+                              dev)
+    box = [state]
+
+    def call():
+        box[0], m = multi(box[0], stacked)
+        return m
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms, _ = host_ms(call, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_ms, _ = host_ms(lambda: eval_fn(box[0].params, batch), 10)
+    n = K * t["batch_size"] * t["pad_to"]
+    log(f"(f) ecoli_worker_fn {worker_ms:.3f} ms a batch (host; B={t['batch_size']}, "
+        f"{t['min_sample_length']}-{t['max_sample_length']} events, padded to {t['pad_to']}); "
+        f"copy to the card {levels_ms:.3f} ms a levels batch ({bs[0].signal.nbytes / 1e3:.1f} "
+        f"KB) against {onehot_ms:.3f} ms its one-hot ({onehot.signal.nbytes / 1e6:.2f} MB); "
+        f"the K={K} call {call_ms:.3f} ms ({n / call_ms * 1e3:.0f} samples/s; host clock, "
+        f"synchronised, mean of 3 after a warm call); validation forward {eval_ms:.3f} ms; the "
+        f"loop {rates[0]:.0f} / {rates[1]:.0f} samples/s (runs 1 / 2, between prints); the "
+        f"producers kept up: no StopIteration before max_iters, train fetches waited "
+        f"{sum(waits):.1f} ms in all over {len(waits)} batches (max {max(waits):.2f}); peak "
+        f"memory {peak:.2f} GiB (the K-step calls); card {card}")
+
+
+def run_hdf5(dev, card):
+    """Phase 11: the HDF5 read path. (a) the real-read fixture rebuilt,
+    (b) the overfit on it, then on a read set of 8 reads x 4000 events:
+    (c) configs/ecoli_hdf5_quality.json through train and a resume, B4/B5-bf16
+    held at its 15 blocks, B1/B2 at its length-aware CTC, (d) levels against
+    one-hot, (e) evaluate, (f) times."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_hdf5_"))
+    try:
+        fx = rebuild_fixture(tmp)
+        overfit = overfit_realread(dev, fx)
+        path, run_dir = tmp / "ecoli_reads.hdf5", tmp / "run"
+        cfg = ecoli_cfg(path, run_dir)
+        with reads_file(path, make_reads(SEED, ECOLI_READS, ECOLI_EVENTS)) as how:
+            log(f"phase 11 read set: {ECOLI_READS} reads x {ECOLI_EVENTS} events at {LEVELS} "
+                f"levels, 4-11 samples an event ({how}); configs/ecoli_hdf5_quality.json: "
+                f"{len(cfg['model']['base']['dilations'])} + "
+                f"{len(cfg['model']['classifier']['dilations'])} blocks, pool "
+                f"{cfg['model']['classifier']['downsample']}, bf16, nworkers "
+                f"{cfg['training']['nworkers']}, steps_per_call "
+                f"{cfg['training']['steps_per_call']}, {ECOLI_STEPS} steps a run")
+            counts, rates, waits = ecoli_train_runs(cfg, run_dir, dev)
+            # the kernels at this path's shapes, on one held-out levels batch
+            ds, model, state, (step, *_), _, t = cli.build_from_config(copy.deepcopy(cfg), dev)
+            try:
+                b = ds.fetch("valid")
+            finally:
+                ds.close()
+            state = restore_checkpoint(str(run_dir / "ckpts"), state)
+            model.load_params(state.params)
+            batch = batch_to_device(b, dev)
+            check_cli_kernels(model, batch, t)
+            with torch.no_grad():
+                logits = model(F.one_hot(batch["signal"].long(), LEVELS).float())
+            frames = torch.as_tensor(model.output_length(b.signal_lengths), dtype=torch.int32,
+                                     device=dev)
+            ext, allow = _extend_labels(batch["labels"], 0)
+            lp_ext = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous()
+            T, Bx, J = lp_ext.shape
+            log(f"(c) B1, B2 at the length-aware CTC: B={Bx} T={T} J={J}, logit lengths "
+                f"{frames.tolist()}")
+            phase_ctc(lp_ext, torch.where(allow, 0.0, NEG), logits, batch, frames)
+            onehot = levels_equal_onehot(step, state, b, dev)
+            del model, state, step, logits, lp_ext
+            ev_launches, b6_shape = ecoli_evaluate(cfg, run_dir, dev)
+            ecoli_times(cfg, dev, path, onehot, rates, waits, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return dict(launches={"overfit": overfit["launches"], "train": counts,
+                          "evaluate": ev_launches},
+                shapes={"overfit": f"real-read overfit {overfit['shape']}",
+                        "train": f"ecoli_hdf5_quality B=8 L=1216 T={T} J={J}, a train run "
+                                 f"of {ECOLI_STEPS} steps",
+                        "evaluate": f"ecoli_hdf5_quality {b6_shape}, an evaluate of "
+                                    f"{ECOLI_EVAL_BATCHES} batches"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmuls and cuDNN convs: every float32 product is full float32")
+    for k, (obj, name) in _NUMERICS_FLAGS.items():   # torch's defaults: cuDNN TF32 on
+        setattr(obj, name, TORCH_DEFAULTS[k])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2661,6 +3286,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     model = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
+    check_numerics("the first Model")
+    log(f"CUDA numerics: torch's defaults {TORCH_DEFAULTS} before the first Model, the "
+        f"port's {numerics()} after it (utils/device.py): every float32 product is full "
+        f"float32, cuDNN's algorithms deterministic")
     rng = np.random.default_rng(SEED)
     reads = onehot_reads(rng, B, L, LEVELS)
     caller = Basecaller(model, beam_width=BEAM_WIDTH, logit_length_fn=lambda l: l // POOL,
@@ -2790,6 +3419,9 @@ def main() -> int:
     long_read = run_long_read(dev, smi)
     # ---- 10. RawCTCNet training and evaluation: train, evaluate, B1/B2/B6
     gauss = run_gauss_training(dev, smi)
+    # ---- 11. the HDF5 read path: the ecoli configs through train and evaluate
+    hdf5 = run_hdf5(dev, smi)
+    check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
 
@@ -2835,6 +3467,11 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
     kernels.extend(b3)
+    for name in {k["name"] for k in kernels}:   # phase 11's launches on each kernel's first line
+        k = next(k for k in kernels if k["name"] == name)
+        runs = {run: c[name] for run, c in hdf5["launches"].items() if c.get(name)}
+        if runs:
+            k.update(hdf5_launches=runs, hdf5_shapes={run: hdf5["shapes"][run] for run in runs})
     for key, name, source, replaces in (
             ("b1", "ctc_alpha", "ctc.cu", "ctc.py:83"), ("b2", "ctc_beta", "ctc.cu", "ctc.py:142"),
             ("b6", "ctc_beam", "ctc_beam.cu", "attic/beam.py:62")):

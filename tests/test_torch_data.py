@@ -79,20 +79,30 @@ def test_dataset_pore_streams_equal_jax():
 
 
 @pytest.mark.parametrize("datatype", ["gauss", "hdf5", "raw-pore", "raw-gauss", "raw-hdf5"])
-def test_dataset_other_datatypes_raise(datatype):
-    """gauss, raw-pore and raw-gauss are ported: their batches equal JAX's;
-    hdf5 is not ported yet (ROADMAP A9) and raw-hdf5 raises, as in JAX."""
-    if datatype in ("hdf5", "raw-hdf5"):
-        with pytest.raises(NotImplementedError, match="ROADMAP" if datatype == "hdf5"
-                           else "unsupported"):
-            Dataset(datatype, seed=0)
-        with pytest.raises(NotImplementedError, match="unsupported"):
-            JDataset("raw-hdf5", seed=0)
+def test_dataset_other_datatypes_raise(datatype, tmp_path):
+    """gauss, raw-pore, raw-gauss and hdf5 are ported: their batches equal
+    JAX's (hdf5 on a file of tools/make_synthetic_reads.py, one producer a
+    split, so the queues' order is the producers'); raw-hdf5 raises, as in
+    JAX."""
+    if datatype == "raw-hdf5":
+        for cls in (Dataset, JDataset):
+            with pytest.raises(NotImplementedError, match="unsupported"):
+                cls(datatype, seed=0)
         return
     kw = dict(batch_size=2, min_length=20, max_length=26, num_levels=16, seed=3)
+    if datatype == "hdf5":
+        pytest.importorskip("h5py")
+        from tools.make_synthetic_reads import main as make_reads
+
+        kw["dataset"] = str(tmp_path / "reads.hdf5")
+        make_reads([kw["dataset"], "--reads", "4", "--events", "300", "--num-levels", "16"])
     got, want = Dataset(datatype, **kw), JDataset(datatype, **kw)
-    for stream in ("train", "valid"):
-        _assert_batches_equal(got.fetch(stream), want.fetch(stream))
+    try:
+        for stream in ("train", "valid"):
+            _assert_batches_equal(got.fetch(stream), want.fetch(stream))
+    finally:
+        got.close()
+        want.close()
 
 
 def test_dataset_unknown_datatype():

@@ -51,11 +51,30 @@ def test_checked_files_cover_the_parallel_layer():
 
 
 def test_checked_files_cover_the_long_read_slice():
-    """RawCTCNet, the streaming beam, long-read inference and the basecall
-    command are among the files checked above."""
+    """RawCTCNet, the streaming beam, long-read inference, the basecall
+    command and the HDF5 loaders are among the files checked above."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    for mod in ("models/raw_ctcnet", "decoding/streaming", "inference", "cli", "facade"):
+    for mod in ("models/raw_ctcnet", "decoding/streaming", "inference", "cli", "facade",
+                "data/hdf5"):
         assert f"wavenet_speech_tpu_torch/{mod}.py" in names
+
+
+def test_hdf5_loaders_import_without_h5py(monkeypatch):
+    """The card's machine has no h5py: data/hdf5.py imports it inside the
+    loaders' constructors only, so the module (and the facade, the CLI)
+    import without it."""
+    import importlib
+    import sys
+
+    path = ROOT / "wavenet_speech_tpu_torch" / "data" / "hdf5.py"
+    top = [n for n in ast.parse(path.read_text()).body
+           if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert top and not any("h5py" in ast.unparse(n) for n in top)
+    monkeypatch.setitem(sys.modules, "h5py", None)   # import h5py now raises
+    monkeypatch.delitem(sys.modules, "wavenet_speech_tpu_torch.data.hdf5", raising=False)
+    mod = importlib.import_module("wavenet_speech_tpu_torch.data.hdf5")
+    with pytest.raises(ImportError):
+        mod.QueueLoader("reads.hdf5")
 
 
 def test_checker_sees_forbidden_imports(tmp_path):

@@ -8,7 +8,10 @@ cli.py):
 
 Both model types train: wavenet-ctc on the joint loss by default, and
 raw-ctcnet (BatchNorm1d + RawCTCNet) on the CTC loss, keeping BatchNorm's
-running statistics.
+running statistics. Every datatype of the JAX CLI is read: the generated
+ones and ``hdf5`` (real reads, through producer threads; with
+``device_onehot`` its batches are (B, L) int32 levels, one-hot on the
+card).
 
 The training loop follows the JAX CLI's: fixed or fresh validation batches
 re-scored at every print, a moving-average train loss, samples/s, early stop
@@ -31,8 +34,8 @@ forward's, as JAX's ``chunked_logits`` documents. A pooled wavenet-ctc
 head cannot be chunked (the grid counts samples) and is refused up front,
 where the JAX package fails its stitching check.
 
-Not ported yet: the ``hdf5`` datatype (ROADMAP A9) and the native beam
-engine (ROADMAP A10).
+Not ported yet: the native beam engine (ROADMAP A10), which only the API
+reaches.
 """
 from __future__ import annotations
 
@@ -103,8 +106,10 @@ def build_dataset(cfg) -> Dataset:
         epoch_size=t["epoch_size"], batch_size=t["batch_size"],
         num_levels=cfg.get("model", {}).get("base", {}).get("signal_dim", 256),
         min_length=t["min_sample_length"], max_length=t["max_sample_length"],
-        seed=t.get("seed"), upsampling=t.get("upsampling", 4),
-        sample_noise=t.get("sample_noise", 2.0))
+        nworkers=t["nworkers"], seed=t.get("seed"), upsampling=t.get("upsampling", 4),
+        sample_noise=t.get("sample_noise", 2.0),
+        pad_to=t.get("pad_to"), labels_pad_to=t.get("labels_pad_to"),
+        device_onehot=bool(t.get("device_onehot", False)))
 
 
 def build_from_config(cfg, device=None):
@@ -154,7 +159,10 @@ def train(cfg, device=None) -> int:
 def train_with_result(cfg, device=None) -> dict:
     """Run the training loop (cli.py:150-301) and return {"vloss": best
     validation loss (the train moving average when no validation number
-    came), "train_loss", "steps"}."""
+    came), "train_loss", "steps"}. A validation stream that runs dry
+    (StopIteration) leaves fewer fixed batches, or a print's validation
+    loss nan, as in the JAX CLI. The dataset is closed on exit, after the
+    final save."""
     dataset, model, state, (step_fn, xe_step_fn, xe_iters, multi_fn, K), \
         eval_fn, t = build_from_config(cfg, device)
     dev = model.device
@@ -171,7 +179,10 @@ def train_with_result(cfg, device=None) -> dict:
     # fixed validation batches, drawn once and re-scored at every print
     fixed_valid = []
     for _ in range(int(t.get("fixed_valid_batches", 0) or 0)):
-        fixed_valid.append(batch_to_device(dataset.fetch("valid"), dev))
+        try:
+            fixed_valid.append(batch_to_device(dataset.fetch("valid"), dev))
+        except StopIteration:
+            break
 
     meter = MovingAverageMeter(5)
     tput = Throughput()
@@ -211,12 +222,17 @@ def train_with_result(cfg, device=None) -> dict:
                 meter.add(float(metrics["total_loss"]))
                 tput.tick(samples_acc)
                 samples_acc = 0
+                vloss = float("nan")
                 if fixed_valid:
                     vloss = float(np.mean([float(eval_fn(state.params, vb)["total_loss"])
                                            for vb in fixed_valid]))
                 else:
-                    vloss = float(eval_fn(state.params, batch_to_device(
-                        dataset.fetch("valid"), dev))["total_loss"])
+                    try:
+                        vbatch = dataset.fetch("valid")
+                        vloss = float(eval_fn(state.params, batch_to_device(
+                            vbatch, dev))["total_loss"])
+                    except StopIteration:
+                        pass
                 logger.log("loss", step_idx, meter.value, vloss)
                 logger.metrics(step_idx, train_loss=meter.value, valid_loss=vloss,
                                ctc_loss=float(metrics["ctc_loss"]),
@@ -241,6 +257,7 @@ def train_with_result(cfg, device=None) -> dict:
         wait_for_async_saves(logger.ckpt_dir)
         save_checkpoint(logger.ckpt_dir, state)
         logger.message(f"final checkpoint @ step {step_idx}")
+        dataset.close()
         logger.close()
     return {"vloss": best_vloss if np.isfinite(best_vloss) else meter.value,
             "train_loss": meter.value, "steps": step_idx}
@@ -251,32 +268,43 @@ def evaluate(cfg, device=None) -> int:
     ``<save_dir>/ckpts/``) on ``eval_batches`` held-out batches: the eval
     step's loss and the basecall identity of the ``decoder`` ("argmax" or
     "beam", ``beam_width``) against the labels, padded frames excluded
-    (cli.py:304-363). Prints the JAX CLI's line."""
+    (cli.py:304-363). A (B, L) levels batch (``device_onehot``) is one-hot
+    to the model's signal_dim on the device before the forward, as the
+    JAX CLI's ``_predict`` does. Prints the JAX CLI's line, then closes the
+    dataset."""
     dataset, model, state, _, eval_fn, t = build_from_config(cfg, device)
-    ckpt = t.get("restore") or f"{t['save_dir'].rstrip('/')}/ckpts/"
-    state = restore_checkpoint(ckpt, state)
-    model.load_params(state.params)
-    decoder = Decoder(t.get("decoder", "argmax"), beam_width=t.get("beam_width", 7))
-    losses, identities = [], []
-    for i in range(t.get("eval_batches", 10)):
-        try:
-            batch = dataset.fetch("valid")
-        except StopIteration:
-            break
-        dev = batch_to_device(batch, model.device)
-        losses.append(float(eval_fn(state.params, dev)["total_loss"]))
-        with torch.no_grad():
-            logits = model(dev["signal"])
-        _, decoded = decoder.decode(logits, lengths=model.output_length(batch.signal_lengths))
-        targets = labels2strings([batch.labels[b, :batch.label_lengths[b]]
-                                  for b in range(batch.labels.shape[0])])
-        identities.append(batch_identity([list(d) for d in decoded], targets)[0])
-        if t.get("print_samples") and i == 0:
-            for d, tg in list(zip(decoded, targets))[:4]:
-                print(f"  pred: {d}\n  true: {tg}")
-    print(f"eval loss over {len(losses)} batches: "
-          f"{np.mean(losses) if losses else float('nan'):.4f} | basecall identity: "
-          f"{np.mean(identities) if identities else float('nan'):.3f}", flush=True)
+    try:
+        ckpt = t.get("restore") or f"{t['save_dir'].rstrip('/')}/ckpts/"
+        state = restore_checkpoint(ckpt, state)
+        model.load_params(state.params)
+        decoder = Decoder(t.get("decoder", "argmax"), beam_width=t.get("beam_width", 7))
+        signal_dim = cfg.get("model", {}).get("base", {}).get("signal_dim", 256)
+        losses, identities = [], []
+        for i in range(t.get("eval_batches", 10)):
+            try:
+                batch = dataset.fetch("valid")
+            except StopIteration:
+                break
+            dev = batch_to_device(batch, model.device)
+            losses.append(float(eval_fn(state.params, dev)["total_loss"]))
+            signal = dev["signal"]
+            if signal.dim() == 2:  # levels: one-hot on the device
+                signal = torch.nn.functional.one_hot(signal.long(), signal_dim).float()
+            with torch.no_grad():
+                logits = model(signal)
+            _, decoded = decoder.decode(logits,
+                                        lengths=model.output_length(batch.signal_lengths))
+            targets = labels2strings([batch.labels[b, :batch.label_lengths[b]]
+                                      for b in range(batch.labels.shape[0])])
+            identities.append(batch_identity([list(d) for d in decoded], targets)[0])
+            if t.get("print_samples") and i == 0:
+                for d, tg in list(zip(decoded, targets))[:4]:
+                    print(f"  pred: {d}\n  true: {tg}")
+        print(f"eval loss over {len(losses)} batches: "
+              f"{np.mean(losses) if losses else float('nan'):.4f} | basecall identity: "
+              f"{np.mean(identities) if identities else float('nan'):.3f}", flush=True)
+    finally:
+        dataset.close()
     return 0
 
 

@@ -13,9 +13,10 @@ BatchNorm1d followed by RawCTCNet: the train step normalizes with the
 batch's statistics and keeps the running ones through
 ``BatchNorm1d.update_state``; ``predict`` and every serving path use the
 running statistics (``Model.eval_base()``). ``Dataset`` takes every
-datatype of the JAX facade but ``hdf5`` (ROADMAP A9) and ``raw-hdf5``
-(unsupported there too). ``Decoder``'s beam runs on the card (B6) or in
-numpy; the host C++ engine is not ported (ROADMAP A10).
+datatype of the JAX facade but ``raw-hdf5`` (unsupported there too):
+``hdf5`` reads real reads through ``data.hdf5.QueueLoader``'s producer
+threads, and ``close()`` stops them. ``Decoder``'s beam runs on the card
+(B6) or in numpy; the host C++ engine is not ported (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from wavenet_speech_tpu_torch.bridge import params_from_jax
 from wavenet_speech_tpu_torch.data.common import Batch
 from wavenet_speech_tpu_torch.data.gaussian_kmer import (GaussianModelLoader,
                                                         RawGaussianModelLoader)
+from wavenet_speech_tpu_torch.data.hdf5 import QueueLoader
 from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModelLoader
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
@@ -221,32 +223,42 @@ class Model(nn.Module):
 class Dataset:
     """Datatype-dispatching loader (facade.py:149-236) with the same keyword
     defaults. ``pore``, ``raw-pore``, ``gauss`` and ``raw-gauss`` are
-    ported: the training stream, a separate infinite validation stream on
-    seed + 10**6, and with ``static_shapes`` (the default) signals and
+    generated: the training stream, a separate infinite validation stream
+    on seed + 10**6, and with ``static_shapes`` (the default) signals and
     labels padded to the longest possible, so every batch has one shape.
-    ``hdf5`` is not ported yet (ROADMAP A9); ``raw-hdf5`` is unsupported,
-    as in the JAX package and the reference."""
+    ``hdf5`` reads the file ``dataset`` through a ``QueueLoader`` (its
+    ``nworkers`` producer threads a split, ``queue_size``, ``pad_to``,
+    ``labels_pad_to``, ``device_onehot``); its shapes are padded only to
+    ``pad_to`` / ``labels_pad_to``, and ``fetch`` raises StopIteration when
+    the queue stays empty for a second. ``raw-hdf5`` is unsupported, as in
+    the JAX package and the reference."""
 
     DATATYPES = ("pore", "gauss", "hdf5", "raw-pore", "raw-gauss", "raw-hdf5")
+    QUEUE_TYPES = ("hdf5", "raw-hdf5")
 
     def __init__(self, datatype: str, dataset: Optional[str] = None, **kw):
         if datatype not in self.DATATYPES:
             raise ValueError(f"unknown datatype {datatype!r}")
-        if datatype == "hdf5":
-            raise NotImplementedError(
-                "datatype 'hdf5' is not ported yet (ROADMAP A9: QueueLoader, "
-                "BucketedLoader); the port trains on pore, raw-pore, gauss and raw-gauss")
         if datatype == "raw-hdf5":
             raise NotImplementedError("raw-hdf5 currently unsupported "
                                       "(matches reference Dataset.py:57-58)")
         self.datatype = datatype
         p = dict(max_iters=kw.get("max_iters", 1000), num_epochs=kw.get("num_epochs", 1),
                  epoch_size=kw.get("epoch_size", 1000))
-        p_valid = dict(max_iters=2 ** 62, num_epochs=2 ** 30, epoch_size=p["epoch_size"])
         seed = kw.get("seed")
-        vseed = None if seed is None else seed + 10 ** 6
         common = dict(batch_size=kw.get("batch_size", 8),
                       lengths=(kw.get("min_length", 90), kw.get("max_length", 100)))
+        if datatype == "hdf5":
+            self.data = QueueLoader(
+                dataset, num_epochs=p["num_epochs"], max_iters=p["max_iters"],
+                num_workers=kw.get("nworkers", 1), queue_size=kw.get("queue_size", 50),
+                batch_size=common["batch_size"], sample_lengths=common["lengths"],
+                num_levels=kw.get("num_levels", 256), seed=seed, pad_to=kw.get("pad_to"),
+                labels_pad_to=kw.get("labels_pad_to"),
+                device_onehot=kw.get("device_onehot", False))
+            return
+        p_valid = dict(max_iters=2 ** 62, num_epochs=2 ** 30, epoch_size=p["epoch_size"])
+        vseed = None if seed is None else seed + 10 ** 6
         upsampling = kw.get("upsampling", 4)
 
         def make(pp, s):
@@ -269,12 +281,21 @@ class Dataset:
 
     @property
     def signal_channels(self) -> int:
-        return self.data.signal_channels
+        return getattr(self.data, "signal_channels", 256)
 
     def fetch(self, train_or_valid: str = "train") -> Batch:
-        """The next batch of a stream; StopIteration when the training
-        stream's max_iters or num_epochs is reached."""
+        """The next batch of a stream ("train" or "valid"); StopIteration when
+        the training stream's max_iters or num_epochs is reached, or when a
+        queue stays empty."""
+        if self.datatype in self.QUEUE_TYPES:
+            return self.data.dequeue(from_queue=train_or_valid)
         return (self.valid_data if train_or_valid == "valid" else self.data).fetch()
+
+    def close(self) -> None:
+        """Stop a queue's producer threads and close its file (nothing to do
+        for the generated datatypes)."""
+        if self.datatype in self.QUEUE_TYPES:
+            self.data.close()
 
 
 class Decoder:

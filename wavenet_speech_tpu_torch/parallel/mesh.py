@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from wavenet_speech_tpu_torch.utils.device import resolve_device
+
 AXES = ("data", "model", "seq")
 
 
@@ -65,14 +67,14 @@ class Mesh:
 
 def _device_for(rank: int, device: Optional[Union[str, torch.device]]) -> torch.device:
     if device is not None:
-        return torch.device(device)
+        return resolve_device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("make_mesh: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
     local = int(os.environ.get("LOCAL_RANK", rank))
     dev = torch.device("cuda", local % torch.cuda.device_count())
     torch.cuda.set_device(dev)   # NCCL's P2P calls run on the current device
-    return dev
+    return resolve_device(dev)
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1,
