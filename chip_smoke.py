@@ -101,7 +101,9 @@ from a seed; B=8 one-hot reads of L=4505):
      version: every state equal up to plens, the committed labels and times
      equal;
      (d) the basecall command on a checkpoint of those weights, with --long
-     and through the automatic switch: FASTA equal to (b)'s; (e) the bench
+     and through the automatic switch: FASTA equal to basecall_long_batch
+     through the CLI's wrapper (cli.ForwardOnly: margin 0, as the JAX CLI's
+     long path stitches); (e) the bench
      model's causal WaveNet on 2 one-hot reads of 100,000 through
      chunked_logits(model.model_base, ...): B4 in every chunk forward, held
      to the monolithic base forward, and B4 at the chunk shape to its plain
@@ -152,6 +154,26 @@ from a seed; B=8 one-hot reads of L=4505):
      the batches it drew, B6 held row for row; (f) the worker's, the
      copies', the K=5 call's and the validation forward's times, the loop,
      the producers and the peak memory.
+ 12. runs the quality harness (python -m wavenet_speech_tpu_torch.examples.
+     gaussian_eval) at the reference's full width: 2048 features, 100
+     non-causal blocks of 512 channels (50 at k=2, 50 at k=3), 5 labels;
+     raw-gauss B=6, signals of 567 samples, 569 logit frames, labels padded
+     to 89; Adamax 2e-4, batch_standardize, float32. (a) the main path: 20
+     steps into D1 in this process (B1 and B2 once a step, B1 and B6 once an
+     eval batch), 10 steps into D2, D2 resumed to 20 and --eval-only on D2,
+     each as a process of its own: step-20 checkpoints equal to the bit,
+     three equal result JSONs, max_to_keep's step directories; (b) the
+     evaluation recomputed: the per-logit CTC on the plain CTC, B6's beams
+     (T=569, S = 2 x the longest label) equal to the plain beam's, the
+     native C++ engine's best paths, times and scores equal to B6's, the
+     identities; B1/B2 at this shape against their plain versions; (c) the
+     trained params with out1.w x 1e30 dumped (dump_anomaly) and bisected
+     by python -m wavenet_speech_tpu_torch.tools.bisect_nonfinite: a
+     verdict at or after out1, the probed forward equal to the model's in
+     bf16 and float32; (d) the float32 and bf16 steps' times, samples/s and
+     peak memory, the step's parts and the card's busy share, the eval
+     batch's B1, B6 and native decode, the native library's build; (e) the
+     --smoke preset's 150 steps: the per-logit CTC falls, the JSON finite.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -165,8 +187,10 @@ import copy
 import dataclasses
 import importlib
 import io
+import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -194,14 +218,17 @@ from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_init, beam_search_kernel, beam_search_ref, ctc_beam_search)
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
 from wavenet_speech_tpu_torch.decoding.streaming import StreamingBeamBatch
+from wavenet_speech_tpu_torch.examples import gaussian_eval
 from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
 from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _default_margin,
                                                 chunked_logits, chunked_logits_batch)
 from wavenet_speech_tpu_torch.models import RawCTCNet, blocks
+from wavenet_speech_tpu_torch.native import ctc_beam as native_beam
+from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
-                                              ctc_loss)
+                                              ctc_loss, ctc_loss_per_seq)
 from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
@@ -215,6 +242,7 @@ from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_opti
                                                param_tree, trainer)
 from wavenet_speech_tpu_torch.training.checkpoint import (restore_checkpoint, save_checkpoint,
                                                           wait_for_async_saves)
+from wavenet_speech_tpu_torch.training.diagnostics import dump_anomaly
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
                                                        all_reduce_grads, global_norm_safe,
                                                        make_ctc_train_step)
@@ -2301,7 +2329,14 @@ def run_long_read(dev, card):
         f"with the carried state and no live frame (input trie, rows written back) "
         f"{trie_ms:.4f} ms; the commit {commit_ms:.3f} ms a chunk (host clock, its copy to "
         f"the host included); peak memory {peak:.2f} GiB; card {card}")
-    # ---- (d) the basecall command on a checkpoint of these weights
+    # ---- (d) the basecall command on a checkpoint of these weights, against
+    # the API driven through the CLI's margin-0 wrapper (the JAX CLI's path)
+    t = cfg["training"]
+    pipe = Basecaller(cli.ForwardOnly(model), beam_width=t.get("beam_width", 7),
+                      cutoff_top_n=t.get("cutoff_top_n"), logit_length_fn=model.output_length,
+                      device=dev)
+    with torch.inference_mode():
+        pseqs, pscores = pipe.basecall_long_batch(reads[..., None])
     with tempfile.TemporaryDirectory() as tmp:
         fasta = {}
         for long_flag in (True, False):
@@ -2311,11 +2346,15 @@ def run_long_read(dev, card):
         if sat:
             raise AssertionError(f"(d) basecall, {name}: the label window saturated in {sat} "
                                  f"(chunk, read) pairs")
-        if cseqs != seqs or cscores != [f"{s:.3f}" for s in scores]:
-            raise AssertionError(f"(d) basecall, {name}: the FASTA differs from (b)'s")
+        if cseqs != pseqs or cscores != [f"{s:.3f}" for s in pscores]:
+            raise AssertionError(f"(d) basecall, {name}: the FASTA differs from the API's "
+                                 f"through cli.ForwardOnly")
     log(f"(d) basecall command (JAX's defaults: window 2048, beam chunks 4096), --long and "
-        f"the automatic switch above 65,536 samples: FASTA equal to (b)'s strings and "
-        f"scores; saturated (chunk, read) pairs 0; launches {fasta[True][3]}")
+        f"the automatic switch above 65,536 samples: FASTA equal to basecall_long_batch "
+        f"through the CLI's margin-0 wrapper (cli.ForwardOnly, as the JAX CLI); saturated "
+        f"(chunk, read) pairs 0; launches {fasta[True][3]}; its basecalls differ from (b)'s "
+        f"(the model's margin {margin}) in {sum(a != b for a, b in zip(pseqs, seqs))} of "
+        f"{LONG_B} reads")
     del model, caller, logits, lp, sig, raw, sbb, start
     torch.cuda.empty_cache()
     # ---- (e) a causal WaveNet's chunked forwards: B4 in every chunk
@@ -3265,6 +3304,375 @@ def run_hdf5(dev, card):
                                     f"{ECOLI_EVAL_BATCHES} batches"})
 
 
+# ---- 12. the quality harness: examples/gaussian_eval.py at full width ---------
+
+ROOT = Path(__file__).resolve().parent
+HARNESS = "wavenet_speech_tpu_torch.examples.gaussian_eval"
+BISECT = "wavenet_speech_tpu_torch.tools.bisect_nonfinite"
+# the reference's eval architecture (2048 features, fk 3, 100 non-causal
+# blocks of 512 channels, 50 at k=2 and 50 at k=3, out 512, 5 labels),
+# Adamax 2e-4, batch_standardize, CTC per logit, float32
+QUALITY_WIDTH = ("--scale", "1.0", "--nhid", "512")
+QUALITY_STEPS, QUALITY_SAVE, QUALITY_EVAL_BATCHES = 20, 10, 2
+QUALITY_BF16_STEPS = 5
+# the harness's CTC against the plain CTC on the same logits; the native
+# engine's scores (double) against B6's (float32)
+QUALITY_CTC_RTOL = NATIVE_SCORE_RTOL = 1e-5
+# forensics: where out1.w x 1e30 may first go non-finite (at or after out1;
+# tests/test_diagnostics.py)
+AFTER_OUT1 = ("out1", "logits", "ctc_per_seq", "loss", "global_norm_sumsq")
+SMOKE_PRINTS = (0, 50, 100)
+
+
+def run_module(module, args, what):
+    """``python -m module args`` from the checkout's root, as a user runs
+    it (on this card, a process of its own); returns (stdout, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"{what}: python -m {module} exited {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def harness_args(ckpt_dir, out, steps, *extra):
+    return [*QUALITY_WIDTH, "--steps", str(steps), "--save-every", str(QUALITY_SAVE),
+            "--eval-batches", str(QUALITY_EVAL_BATCHES), "--ckpt-dir", str(ckpt_dir),
+            "--out", str(out), *extra]
+
+
+def step_dirs(ckpt_dir):
+    return sorted(int(p.name) for p in Path(ckpt_dir).iterdir() if p.name.isdigit())
+
+
+def ctc_prints(text):
+    return {int(m[1]): float(m[2])
+            for m in re.finditer(r"^step (\d+): per-logit CTC (\S+)", text, re.M)}
+
+
+def quality_train_runs(tmp):
+    """(a) The main path: a straight 20-step run into D1 in this process
+    (launches counted), then 10 steps into D2, D2 resumed to 20 and
+    --eval-only on D2, each ``python -m`` the harness. The step-20
+    checkpoints of D1 and D2 equal to the bit, the three result JSONs
+    equal, max_to_keep's directories. Returns D1's result, its checkpoint
+    directory and its launches."""
+    d1, d2 = tmp / "d1" / "ckpts", tmp / "d2" / "ckpts"
+    out = {k: tmp / f"{k}.json" for k in ("d1", "d2_10", "d2", "d2_eval")}
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r1 = gaussian_eval.main(harness_args(d1, out["d1"], QUALITY_STEPS))
+    torch.cuda.synchronize()
+    secs = {"D1 (20 steps, this process)": time.perf_counter() - t0}
+    launches = {k: v for k, v in read_counts().items() if v}
+    want = {"ctc_alpha": QUALITY_STEPS + QUALITY_EVAL_BATCHES, "ctc_beta": QUALITY_STEPS,
+            "ctc_beam": QUALITY_EVAL_BATCHES}
+    if launches != want:
+        raise AssertionError(f"(a) D1: launches {launches}, expected {want}")
+    _, secs["D2 (10 steps)"] = run_module(
+        HARNESS, harness_args(d2, out["d2_10"], QUALITY_SAVE), "(a) D2, 10 steps")
+    text, secs["D2 resumed to 20"] = run_module(
+        HARNESS, harness_args(d2, out["d2"], QUALITY_STEPS), "(a) D2, resumed")
+    text_e, secs["D2 --eval-only"] = run_module(
+        HARNESS, harness_args(d2, out["d2_eval"], QUALITY_STEPS, "--eval-only"),
+        "(a) D2, --eval-only")
+    results = [json.loads(json.dumps(r1))] + [json.loads(out[k].read_text())
+                                              for k in ("d1", "d2", "d2_eval")]
+    a, b = (torch.load(d / str(QUALITY_STEPS) / "state.pt", map_location="cpu",
+                       weights_only=True) for d in (d1, d2))
+    la, lb = tree_leaves(a), tree_leaves(b)
+    differ = sum(not (torch.equal(x, y) if torch.is_tensor(x) else x == y)
+                 for x, y in zip(la, lb))
+    dirs = {"D1": step_dirs(d1), "D2": step_dirs(d2)}
+    want_dirs = list(range(QUALITY_SAVE, QUALITY_STEPS + 1, QUALITY_SAVE))
+    problems = [what for what, bad in (
+        (f"step-20 checkpoints differ in {differ} of {len(la)} leaves",
+         differ or len(la) != len(lb)),
+        ("the result JSONs differ", any(r != results[0] for r in results)),
+        (f"step directories {dirs}, expected {want_dirs}",
+         any(v != want_dirs for v in dirs.values())),
+        ("D2 did not resume at step 10", f"resumed from step {QUALITY_SAVE}" not in text),
+        ("--eval-only did not restore step 20",
+         f"resumed from step {QUALITY_STEPS}" not in text_e),
+        ("a non-finite number in the result",
+         not all(map(math.isfinite, [r1["avg_per_logit_ctc"], r1["mean_identity"]]))))
+        if bad]
+    if problems:
+        raise AssertionError("(a) " + "; ".join(problems))
+    n = sum(t.numel() for t in a["params"].values())
+    log(f"(a) the harness at full width ({len(a['params'])} parameter tensors, {n} "
+        f"parameters): D1 20 steps in this process, per-logit CTC at step 0 "
+        f"{ctc_prints(buf.getvalue())[0]:.4f}; launches {launches}; D2 10 steps, resumed "
+        f"to 20, --eval-only: step-20 checkpoints of D1 and D2 equal to the bit ({len(la)} "
+        f"leaves: params, Adamax's state, step); the three result JSONs equal; step "
+        f"directories {dirs} (max_to_keep 4, final save max_to_keep 2); seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    log(f"(a) result: {json.dumps(r1)}")
+    return r1, d1, launches, n, len(a["params"])
+
+
+def quality_batch_inputs(net, params, batch):
+    """The eval forward's logits and what B1 gets from them: the extended
+    log-probs (T, B, J) and the skip mask."""
+    with torch.no_grad():
+        logits = torch.func.functional_call(net, params, (batch_standardize(batch["signal"]),))
+    ext, allow = _extend_labels(batch["labels"], 0)
+    lp_ext = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous()
+    return logits, lp_ext, torch.where(allow, 0.0, NEG)
+
+
+def quality_eval_recompute(net, params, r1, card):
+    """(b) D1's evaluation recomputed from its step-20 params on the same
+    held-out batches: the per-logit CTC on the plain CTC within
+    QUALITY_CTC_RTOL; B6's beams row for row equal to the plain beam's; the
+    native engine's best paths and times equal to B6's, its scores within
+    NATIVE_SCORE_RTOL; the identities from those decodes equal to the
+    JSON's. B1/B2 at this shape against their plain versions (phase_ctc),
+    B6's and the native engine's times."""
+    args = gaussian_eval.parse_args([*QUALITY_WIDTH])
+    train = gaussian_eval.make_loader(args, gaussian_eval.TRAIN_SEED)
+    ev = gaussian_eval.make_loader(args, gaussian_eval.EVAL_SEED, train.pad_to,
+                                   train.labels_pad_to)
+    dev = next(iter(params.values())).device
+    plain_ctc, idents, b6_err, live_rows, native_err = [], [], 0.0, 0, 0.0
+    for i in range(QUALITY_EVAL_BATCHES):
+        b = ev.fetch()
+        batch = batch_to_device(b, dev)
+        logits, lp_ext, skip = quality_batch_inputs(net, params, batch)
+        Bx, T = logits.shape[:2]
+        full = torch.full((Bx,), T, dtype=torch.int32, device=dev)
+        with torch.no_grad(), ctc_plain():
+            plain_ctc.append(float(ctc_loss_per_seq(logits, full, batch["labels"],
+                                                    batch["label_lengths"]).sum()) / T)
+        S = int(b.label_lengths.max() * 2)
+        lp = torch.log_softmax(logits.float(), -1)
+        kw = dict(beam_width=BEAM_WIDTH, max_label_len=S)
+        got = beam_finalize(beam_search_kernel(lp, full, **kw))
+        plain_ms, want = host_ms(lambda: beam_finalize(beam_search_ref(lp, full, **kw)))
+        live, err = compare_beams(got, want, BEAM_WIDTH)
+        b6_err, live_rows = max(b6_err, err), live_rows + live
+        host_logits = logits.cpu().numpy()
+        nl, nn, ns, nt = ctc_beam_search_native(host_logits, beam_width=BEAM_WIDTH,
+                                                max_label_len=S, return_times=True)
+        preds = []
+        for r in range(Bx):
+            n = int(got[1][r, 0])
+            best, times = got[0][r, 0, :n].cpu().numpy(), got[3][r, 0, :n].cpu().numpy()
+            if int(nn[r]) != n or not (np.array_equal(nl[r, :n], best)
+                                       and np.array_equal(nt[r, :n], times)):
+                raise AssertionError(f"(b) batch {i} read {r}: the native engine's best path "
+                                     f"or times differ from B6's")
+            native_err = max(native_err, abs(float(ns[r]) - float(got[2][r, 0]))
+                             / abs(float(got[2][r, 0])))
+            preds.append(best)
+        truths = [b.labels[r, :b.label_lengths[r]] for r in range(Bx)]
+        idents.extend(d[0] for d in batch_identity(preds, truths)[1])
+        if i == 0:
+            shape = f"B={Bx} T={T} J={lp_ext.shape[2]} S={S}"
+            b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
+            ms = cuda_ms(lambda: beam_search_kernel(lp, full, **kw), 5)
+            bound_ms, bound_by = bound_of(*b6_work(lp, full, S))
+            b6 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            native_ms = {}
+            for threads in (0, 1):
+                native_ms[threads], _ = host_ms(lambda: ctc_beam_search_native(
+                    host_logits, beam_width=BEAM_WIDTH, max_label_len=S,
+                    num_threads=threads), 3)
+    ctc_rel = abs(float(np.mean(plain_ctc)) - r1["avg_per_logit_ctc"]) / r1["avg_per_logit_ctc"]
+    problems = [what for what, bad in (
+        (f"avg_per_logit_ctc {r1['avg_per_logit_ctc']} against the plain CTC's "
+         f"{np.mean(plain_ctc)} (relative {ctc_rel:.2e})", ctc_rel > QUALITY_CTC_RTOL),
+        (f"native scores {native_err:.2e} apart from B6's", native_err > NATIVE_SCORE_RTOL),
+        (f"mean_identity {r1['mean_identity']} != {np.mean(idents)} recomputed",
+         float(np.mean(idents)) != r1["mean_identity"]),
+        ("identities differ", [round(float(x), 3) for x in idents] != r1["identities"]))
+        if bad]
+    if problems:
+        raise AssertionError("(b) " + "; ".join(problems))
+    log(f"(b) the evaluation recomputed on D1's step-20 params, {QUALITY_EVAL_BATCHES} "
+        f"batches at {shape}: per-logit CTC on the plain CTC {np.mean(plain_ctc):.6f} "
+        f"(relative {ctc_rel:.2e} from the JSON's, bound {QUALITY_CTC_RTOL}); B6's "
+        f"{live_rows} live rows equal to the plain beam's (max score error {b6_err:.3e}); "
+        f"the native engine's best paths and times equal to B6's, scores within "
+        f"{native_err:.2e} relative (bound {NATIVE_SCORE_RTOL}); mean_identity "
+        f"{np.mean(idents):.6f} recomputed from those decodes")
+    log(f"(d) the eval batch ({shape}): B1 {b1['ms']:.4f} ms, B6 {b6['ms']:.4f} ms "
+        f"(plain {b6['plain_ms']:.1f} ms, bound {b6['bound_ms']:.6f} ms, {b6['bound_by']}; "
+        f"CUDA events); the "
+        f"native engine {native_ms[0]:.3f} ms with its default threads, {native_ms[1]:.3f} "
+        f"ms on 1 thread (host clock, the log-softmax on the host included); card {card}")
+    b6.update(err=b6_err, native_ms=native_ms)
+    return dict(b1=b1, b2=b2, b6=b6, shape=shape)
+
+
+def quality_forensics(params, b, tmp):
+    """(c) D1's trained params with out1.w x 1e30 (tests/test_diagnostics.py)
+    dumped with dump_anomaly, then ``python -m`` the bisect tool on the
+    card: its verdict names sites at or after out1 only, every stage before
+    out1 is finite, and the probed forward matches the model's in bf16 and
+    float32."""
+    bad = dict(params, **{"out1.w": params["out1.w"] * 1e30})
+    path = dump_anomaly(str(tmp / "anomalies"), b, bad, QUALITY_STEPS, "nonfinite",
+                        {"ctc_loss": float("nan"), "grad_norm": float("nan")})
+    out = tmp / "bisect.json"
+    _, secs = run_module(BISECT, ["--dump", path, *QUALITY_WIDTH, "--out", str(out)],
+                         "(c) bisect_nonfinite")
+    rep = json.loads(out.read_text())
+    sites = re.findall(r"'([^']+)'", rep["verdict"])
+    problems = [what for what, bad_ in (
+        (f"verdict {rep['verdict']!r} names no site at or after out1",
+         not sites or not all(s in AFTER_OUT1 or s.startswith("grad:") for s in sites)),
+        *((f"{d}: the probed forward differs from the model's",
+           not rep["reports"][d]["probe_matches_model_apply"]) for d in ("bf16", "f32")),
+        *((f"{d}: stage {name} before out1 is non-finite", not finite)
+          for d in ("bf16", "f32")
+          for name, finite, _ in itertools.takewhile(lambda st: st[0] != "out1",
+                                                     rep["reports"][d]["stages"])))
+        if bad_]
+    if problems:
+        raise AssertionError("(c) " + "; ".join(problems))
+    log(f"(c) bisect_nonfinite on D1's params with out1.w x 1e30 ({secs:.1f} s, a process "
+        f"of its own): VERDICT {rep['verdict']}; probe == model forward in bf16 and float32")
+
+
+def quality_step_parts(net, tx, state, batch):
+    """(d) The float32 step's forward (CTC included) and backward (CUDA
+    events, mean of 3), the skip guard and Adamax's update over the
+    parameter tensors (CUDA events), and the card's busy share over 3
+    steps (torch.profiler)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fwd = bwd = 0.0
+    for _ in range(3):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        ev[0].record()
+        logits = torch.func.functional_call(net, leaves,
+                                            (batch_standardize(batch["signal"]),))
+        Bx, T = logits.shape[:2]
+        loss = ctc_loss_per_seq(logits, torch.full((Bx,), T, dtype=torch.int32,
+                                                   device=logits.device),
+                                batch["labels"], batch["label_lengths"]).sum() / T
+        ev[1].record()
+        torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                            materialize_grads=True)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd += ev[0].elapsed_time(ev[1]) / 3
+        bwd += ev[1].elapsed_time(ev[2]) / 3
+    g = state.params
+    guard_ms = cuda_ms(lambda: (global_norm_safe(g), all_finite(g)), 3)
+    update_ms = cuda_ms(lambda: tx.update(g, state.opt_state, g), 3)
+    return fwd, bwd, guard_ms, update_ms
+
+
+def quality_times(dev, card):
+    """(d) The harness's step at full width from its init: float32 (mean of
+    5) and bf16 (mean of QUALITY_BF16_STEPS) on CUDA events after a warm
+    step, samples/s, peak memory; the float32 step's parts and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    args = gaussian_eval.parse_args([*QUALITY_WIDTH])
+    net = gaussian_eval.build_model(1.0, nhid=512, device=dev)
+    net.reset_parameters(torch.Generator().manual_seed(gaussian_eval.TRAIN_SEED))
+    b = gaussian_eval.make_loader(args, gaussian_eval.TRAIN_SEED).fetch()
+    batch = batch_to_device(b, dev)
+    tx = build_optimizer("adamax", args.lr)
+    n = int(np.prod(b.signal.shape[:2]))
+    lines = []
+    for dtype, reps in ((None, 5), (BF16, QUALITY_BF16_STEPS)):
+        step = make_ctc_train_step(net, tx, compute_dtype=dtype, preprocess=batch_standardize)
+        box = [TrainState.create({k: v.detach().clone() for k, v in net.state_dict().items()},
+                                 tx)]
+
+        def one_step():
+            box[0], m = step(box[0], batch)
+            return m
+
+        one_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one_step, reps, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lines.append(f"{'bf16' if dtype else 'float32'} {ms:.3f} ms a step (mean of {reps}), "
+                     f"{n / ms * 1e3:.0f} samples/s, peak memory {peak:.2f} GiB")
+        if dtype is None:
+            fwd, bwd, guard_ms, update_ms = quality_step_parts(net, tx, box[0], batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall_ms, _ = host_ms(one_step, 3)
+            busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 3 / 1e3
+        del box, step
+        torch.cuda.empty_cache()
+    log(f"(d) the harness's train step (B={b.signal.shape[0]}, L={b.signal.shape[1]}, "
+        f"Adamax, TF32 off; CUDA events after a warm step): " + "; ".join(lines)
+        + f"; float32 parts: forward {fwd:.3f} ms, backward {bwd:.3f} ms (CUDA events, mean "
+        f"of 3), skip guard {guard_ms:.3f} ms, Adamax update {update_ms:.3f} ms "
+        f"({len(net.state_dict())} parameter tensors); the card busy {busy_ms:.3f} of "
+        f"{wall_ms:.3f} ms a step over 3 steps ({busy_ms / wall_ms:.1%}; torch.profiler); "
+        f"card {card}")
+    del net
+
+
+def quality_smoke(tmp, card):
+    """(e) The --smoke preset's 150 steps on the card: the per-logit CTC at
+    steps 0, 50 and 100 must fall, the result JSON be finite."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = gaussian_eval.main(["--smoke", "--out", str(tmp / "smoke.json")])
+    secs = time.perf_counter() - t0
+    ctc = ctc_prints(buf.getvalue())
+    numbers = [r["avg_per_logit_ctc"], r["ref_convention_per_logit_ctc"],
+               r["mean_identity"], *r["identities"]]
+    if sorted(ctc) != list(SMOKE_PRINTS) or not ctc[SMOKE_PRINTS[-1]] < ctc[0] \
+            or not all(map(math.isfinite, numbers)):
+        raise AssertionError(f"(e) --smoke: per-logit CTC {ctc}, result {r}")
+    log(f"(e) --smoke (scale 1/64, 10 blocks of 32 channels, batch 4, lr 2e-3, 150 steps) on "
+        f"the card in {secs:.1f} s: per-logit CTC " + ", ".join(
+            f"step {s} {v:.4f}" for s, v in ctc.items()) + f"; result {json.dumps(r)}; "
+        f"card {card}")
+
+
+def run_quality(dev, card):
+    """Phase 12: the quality harness (examples/gaussian_eval.py) at the
+    reference's full width: train, resume, evaluate, forensics, timings,
+    the --smoke preset. card: nvidia-smi's name and power limit."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_"))
+    try:
+        t_build = time.perf_counter()
+        native_beam.load_library(tmp / "native_build")  # a fresh build, timed
+        build_s = time.perf_counter() - t_build
+        log(f"phase 12: the native beam library built with g++ in {build_s:.2f} s (a fresh "
+            f"directory)")
+        # ---- (a) the main path: train, resume, re-evaluate
+        r1, d1, launches, n_params, n_tensors = quality_train_runs(tmp)
+        net = gaussian_eval.build_model(1.0, nhid=512, device=dev)
+        params = {k: v.to(dev) for k, v in torch.load(
+            d1 / str(QUALITY_STEPS) / "state.pt", map_location="cpu",
+            weights_only=True)["params"].items()}
+        # ---- (b) the evaluation against its recomputation
+        ev = quality_eval_recompute(net, params, r1, card)
+        # ---- (c) forensics on poisoned params
+        args = gaussian_eval.parse_args([*QUALITY_WIDTH])
+        quality_forensics(params, gaussian_eval.make_loader(
+            args, gaussian_eval.TRAIN_SEED).fetch(), tmp)
+        del net, params
+        torch.cuda.empty_cache()
+        # ---- (d) timings
+        quality_times(dev, card)
+        # ---- (e) the --smoke preset
+        quality_smoke(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, shape=ev["shape"], b1=ev["b1"], b2=ev["b2"], b6=ev["b6"],
+                params=n_params, tensors=n_tensors, native_build_s=build_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3421,6 +3829,8 @@ def main() -> int:
     gauss = run_gauss_training(dev, smi)
     # ---- 11. the HDF5 read path: the ecoli configs through train and evaluate
     hdf5 = run_hdf5(dev, smi)
+    # ---- 12. the quality harness at full width: train, resume, evaluate, bisect
+    quality = run_quality(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -3482,6 +3892,20 @@ def main() -> int:
             replaces=f"wavenet_speech_tpu/ops/pallas/{replaces}", launches=k["launches"],
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k.get("library_ms")))
+    for name in ("ctc_alpha", "ctc_beta", "ctc_beam"):  # phase 12's on each first line
+        next(k for k in kernels if k["name"] == name).update(
+            quality_launches=quality["launches"][name], quality_shape=quality["shape"])
+    for key, name, source, replaces in (
+            ("b1", "ctc_alpha", "ctc.cu", "ctc.py:83"), ("b2", "ctc_beta", "ctc.cu", "ctc.py:142"),
+            ("b6", "ctc_beam", "ctc_beam.cu", "attic/beam.py:62")):
+        k = quality[key]
+        kernels.append(dict(
+            name=name, shape=f"quality harness {quality['shape']}", route="cuda",
+            source=f"wavenet_speech_tpu_torch/csrc/{source}",
+            replaces=f"wavenet_speech_tpu/ops/pallas/{replaces}",
+            launches=quality["launches"][name], max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

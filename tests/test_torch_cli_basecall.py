@@ -9,9 +9,10 @@ tests do.
 Held: the short path's FASTA sequences equal the JAX CLI's and its scores
 within 1e-3 (the beam tests' tolerance), for the three input forms. The
 long path (``--long`` and the automatic switch) equals JAX's
-``Basecaller.basecall_long_batch`` given a model that carries its
-receptive field; the JAX CLI's own long path stitches with margin 0 and
-is shown to differ from the monolithic forward at chunk boundaries."""
+``Basecaller.basecall_long_batch`` given the JAX CLI's wrapper, the JAX
+CLI's own path: both stitch with margin 0, which is shown to differ from
+the monolithic forward at chunk boundaries, while the port's API, given
+the model, keeps its margin and equals the monolithic forward."""
 import functools
 import json
 from pathlib import Path
@@ -154,8 +155,8 @@ def test_long_basecall_matches_jax_basecall_long_batch(runs, monkeypatch):
     """--long, and the automatic switch above the long-read threshold, on
     reads of 700 samples with the long path's sizes cut (chunks of 256
     samples, beam chunks of 128 frames): one batched call, whose FASTA
-    equals JAX's basecall_long_batch given the model with its receptive
-    field."""
+    equals JAX's basecall_long_batch given the JAX CLI's wrapper (margin
+    0), the JAX CLI's own long path."""
     (_, cfg, jm, params), tmp = runs[0]["raw-ctcnet"], runs[1]
     sig = np.random.default_rng(1).standard_normal((3, 700)).astype(np.float32)
     np.save(tmp / "long.npy", sig)
@@ -173,7 +174,7 @@ def test_long_basecall_matches_jax_basecall_long_batch(runs, monkeypatch):
     assert cli.main(["basecall", cfg, "--signals", str(tmp / "long.npy"), "--out",
                      str(tmp / "auto.fa"), "--device", "cpu"]) == 0
     assert calls == [(3, 700, 1)] * 2
-    seqs, scores = jinference.Basecaller(model=WithReceptiveField(jm), params=params,
+    seqs, scores = jinference.Basecaller(model=JaxCliPipe(jm), params=params,
                                          beam_width=4).basecall_long_batch(sig[..., None],
                                                                            **LONG)
     (tmp / "long-jax.fa").write_text("".join(
@@ -183,11 +184,12 @@ def test_long_basecall_matches_jax_basecall_long_batch(runs, monkeypatch):
 
 
 def test_jax_cli_long_path_differs_at_chunk_boundaries(runs):
-    """The gap the port does not copy: JAX's chunked logits through the JAX
-    CLI's wrapper (margin 0, no featurizer extension) lose the last fk - 1
-    frames and differ from the monolithic forward next to every interior
-    chunk boundary; with the model's receptive field, and in the port,
-    they equal it."""
+    """The reference fault the port's CLI keeps: JAX's chunked logits
+    through the JAX CLI's wrapper (margin 0, no featurizer extension) lose
+    the last fk - 1 frames and differ from the monolithic forward next to
+    every interior chunk boundary; the port's CLI wrapper (cli.ForwardOnly)
+    stitches the same logits. With the model's receptive field, in JAX and
+    in the port's API, they equal the monolithic forward."""
     _, cfg, jm, params = runs[0]["raw-ctcnet"]
     sigs = np.random.default_rng(2).standard_normal((2, 700, 1)).astype(np.float32)
     full = np.asarray(jm.predict(params, jnp.asarray(sigs))[1])
@@ -197,9 +199,11 @@ def test_jax_cli_long_path_differs_at_chunk_boundaries(runs):
     port = Model("raw-ctcnet", json.loads(Path(cfg).read_text()), device="cpu").load_jax(
         jax.tree_util.tree_map(np.asarray, params))
     got = chunked_logits_batch(port, sigs, chunk_len=256).numpy()
+    port_cli = chunked_logits_batch(cli.ForwardOnly(port), sigs, chunk_len=256).numpy()
     assert full.shape == fixed.shape == got.shape == (2, 702, 5) and pipe.shape == (2, 700, 5)
     np.testing.assert_allclose(fixed, full, **TOL)
     np.testing.assert_allclose(got, full, **TOL)
+    np.testing.assert_allclose(port_cli, pipe, **TOL)
     bad = np.abs(pipe - full[:, :700]).max(-1) > 1e-3
     frames = sorted(set(np.nonzero(bad)[1].tolist()))
     print(f"JAX CLI long path: {bad.sum()} of {2 * 702} frames differ from the monolithic "

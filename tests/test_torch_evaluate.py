@@ -104,8 +104,14 @@ def test_decoder_times_and_refusals():
         Decoder("argmax").decode(logits, return_times=True)
     with pytest.raises(ValueError):
         Decoder("beam", engine="python").decode(logits, return_times=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        Decoder("beam", engine="native")
+    # the native engine (ported since the refusal this case held) gives the
+    # device engine's decode, times included
+    nsc, nstrs, ntimes = Decoder("beam", beam_width=4, engine="native").decode(
+        logits, lengths, return_times=True)
+    assert nstrs == jstrs and ntimes == jtimes
+    np.testing.assert_allclose(nsc, jsc, rtol=1e-5)
+    with pytest.raises(ValueError):
+        Decoder("beam", engine="bogus")
     with pytest.raises(ValueError):
         Decoder("bogus")
 

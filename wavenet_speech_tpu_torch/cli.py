@@ -25,17 +25,17 @@ chunked forwards and the streaming beam. The commands run on ``cuda``
 unless ``--device`` names another device (``--device cpu`` runs the
 kernels' plain versions).
 
-Where ``basecall`` differs from the JAX CLI: on the long path the JAX CLI
-wraps the model in an object without its receptive field (cli.py:413-416),
-so its chunks are stitched with margin 0 and frames at chunk boundaries
-differ from the monolithic forward; here the Basecaller gets the model
-itself, whose margin makes the stitched logits equal the monolithic
-forward's, as JAX's ``chunked_logits`` documents. A pooled wavenet-ctc
-head cannot be chunked (the grid counts samples) and is refused up front,
-where the JAX package fails its stitching check.
-
-Not ported yet: the native beam engine (ROADMAP A10), which only the API
-reaches.
+``basecall`` hands the Basecaller the JAX CLI's wrapper (cli.py:413-420),
+which exposes the forward alone: the long path stitches its chunks with
+margin 0 and no featurizer extension, as the JAX CLI does, so the FASTA is
+the JAX CLI's. Those stitched logits differ from the monolithic forward
+beside every interior chunk boundary and lack RawCTCNet's last fk - 1
+frames (a fault of the reference the port keeps). The API keeps the
+model's margin: ``Basecaller(model)`` given the ``facade.Model`` stitches
+logits equal to the monolithic forward's. Where ``basecall`` differs from
+the JAX CLI: a pooled wavenet-ctc head cannot be chunked (the grid counts
+samples) and is refused up front, where the JAX package fails its
+stitching check.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
 from wavenet_speech_tpu_torch.decoding.alignment import batch_identity
 from wavenet_speech_tpu_torch.decoding.greedy import labels2strings
 from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
-from wavenet_speech_tpu_torch.inference import Basecaller
+from wavenet_speech_tpu_torch.inference import Basecaller, output_extension
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
                                                make_lr_schedule)
@@ -330,12 +330,26 @@ def load_signals(path: str, cfg, model_type: str) -> np.ndarray:
     return sig.astype(np.float32)
 
 
+class ForwardOnly:
+    """The JAX CLI's ``_Pipe`` (cli.py:413-420): the model's forward and
+    device, without its ``layers``, ``feature_kwidth`` or
+    ``output_length``, so the chunk grid stitches with margin 0 and no
+    featurizer extension."""
+
+    def __init__(self, model):
+        self._model, self.device = model, model.device
+
+    def __call__(self, signal: torch.Tensor) -> torch.Tensor:
+        return self._model(signal)
+
+
 def basecall(cfg, signals_path: str, out_path: Optional[str] = None,
              long_reads: bool = False, device=None) -> int:
     """Basecall the signals of an NPY/NPZ file with the run's latest
     checkpoint and write FASTA (``>read_i score=...`` lines) to out_path or
     stdout (cli.py:366-442). Reads above LONG_READ_SAMPLES samples, or all
-    with long_reads, go through ``Basecaller.basecall_long_batch``."""
+    with long_reads, go through ``Basecaller.basecall_long_batch`` on the
+    model wrapped in ``ForwardOnly``, as the JAX CLI's long path runs."""
     t = training_cfg(cfg)
     model_type = cfg.get("model", {}).get("type", "wavenet-ctc")
     model = Model(model_type, cfg, device=device).init(t.get("seed") or 0)
@@ -348,10 +362,11 @@ def basecall(cfg, signals_path: str, out_path: Optional[str] = None,
     model.load_params(state.params)
 
     sig = load_signals(signals_path, cfg, model_type)
-    caller = Basecaller(model, beam_width=t.get("beam_width", 7),
+    caller = Basecaller(ForwardOnly(model), beam_width=t.get("beam_width", 7),
                         cutoff_top_n=t.get("cutoff_top_n"),
                         logit_length_fn=model.output_length, device=model.device)
     if long_reads or sig.shape[1] > LONG_READ_SAMPLES:
+        output_extension(model, LONG_READ_SAMPLES)  # a pooled head is refused here
         seqs, scores = caller.basecall_long_batch(sig)
         if caller.saturated_chunks:
             print(f"[basecall] streaming beam window saturated in {caller.saturated_chunks} "

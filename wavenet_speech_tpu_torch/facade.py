@@ -37,6 +37,7 @@ from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
 from wavenet_speech_tpu_torch.decoding.prefix_beam import beam_search_decode
 from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, WaveNetClassifier
+from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
 from wavenet_speech_tpu_torch.training.trainer import param_tree
 from wavenet_speech_tpu_torch.utils.config import (base_model_cfg, classifier_cfg,
@@ -302,10 +303,11 @@ class Decoder:
     """'argmax' or 'beam' decoding of (B, T, C) logits to strings
     (facade.py:239-310). Beam engines: 'device', the batched prefix beam
     search of ``decoding.ctc_beam_device`` (the B6 kernel on a CUDA
-    tensor, its plain version on a CPU one), and 'python', the numpy
-    reference ``decoding.prefix_beam``. 'native', the host C++ decoder, is
-    not ported yet (ROADMAP A10). ``prune`` keeps a frame's top-K labels as
-    extension candidates (device engine only; None is exact)."""
+    tensor, its plain version on a CPU one), 'native', the host C++
+    decoder of ``native.ctc_beam`` (the logits copied to the host), and
+    'python', the numpy reference ``decoding.prefix_beam``. ``prune`` keeps
+    a frame's top-K labels as extension candidates (device engine only;
+    None is exact)."""
 
     def __init__(self, decoder: str = "argmax", beam_width: int = 7, blank: int = 0,
                  engine: str = "device", prune: Optional[int] = None):
@@ -313,9 +315,6 @@ class Decoder:
             raise ValueError(f"unknown decoder {decoder!r}")
         if engine not in ("device", "native", "python"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "native":
-            raise NotImplementedError("the native C++ beam engine is not ported yet "
-                                      "(ROADMAP A10); use engine='device' or 'python'")
         self.decoder_type, self.beam_width, self.blank = decoder, beam_width, blank
         self.engine, self.prune = engine, prune
 
@@ -323,15 +322,28 @@ class Decoder:
         """logits (B, T, C), a tensor (on any device) or an array; lengths
         (B,) valid frames (default T). -> (scores, strings[, times]):
         scores None for argmax; times, one list a sequence of the frame at
-        which each label was emitted, from the device engine only."""
+        which each label was emitted, from the device and native engines."""
         if self.decoder_type == "argmax":
             if return_times:
                 raise ValueError("times are a beam-engine output")
             return None, greedy_ctc_decode(torch.as_tensor(logits), lengths, self.blank)
+        if self.engine != "device":
+            logits = (logits.detach().float().cpu().numpy() if torch.is_tensor(logits)
+                      else np.asarray(logits))
+            lengths = (lengths.detach().cpu().numpy() if torch.is_tensor(lengths)
+                       else lengths)
+        if self.engine == "native":
+            labels, lens, scores, times = ctc_beam_search_native(
+                logits, beam_width=self.beam_width, blank=self.blank, lengths=lengths,
+                return_times=True)
+            out = ([float(s) for s in scores],
+                   labels2strings([labels[b, :lens[b]] for b in range(labels.shape[0])]))
+            if return_times:
+                out += ([times[b, :lens[b]].tolist() for b in range(labels.shape[0])],)
+            return out
         if self.engine == "python":
             if return_times:
-                raise ValueError("times need the 'device' engine")
-            logits = logits.detach().cpu().numpy() if torch.is_tensor(logits) else logits
+                raise ValueError("times need the 'device' or 'native' engine")
             results, scores = beam_search_decode(np.asarray(logits), self.beam_width,
                                                  self.blank, lengths)
             return scores, labels2strings(results)

@@ -196,6 +196,21 @@ def _check_chunk_len(chunk_len: int, margin: int) -> None:
         raise ValueError(f"chunk_len {chunk_len} must exceed 2*margin ({2 * margin})")
 
 
+def output_extension(model, L: int) -> int:
+    """output_length(L) - L, the frames the model adds to a read of L
+    samples; ValueError for a model whose frames do not follow its samples
+    one to one (a pooled head)."""
+    extra = int(model.output_length(L)) - L
+    if int(model.output_length(2 * L)) - 2 * L != extra:
+        raise ValueError(
+            f"chunked forwards need one logit frame a sample, but this model "
+            f"emits output_length({L}) = {model.output_length(L)} "
+            f"frames (a pooled head: L // pool): the chunk grid counts samples, so "
+            f"its slices would not tile the logits (the JAX package fails its "
+            f"stitching check there, inference.py:252)")
+    return extra
+
+
 def _chunk_grid(model, L: int, chunk_len: int, margin: int):
     """The overlapping-chunk plan for one read length (inference.py:301-328):
     chunk start offsets, each chunk's kept (lo, hi) output slice (they tile
@@ -203,17 +218,7 @@ def _chunk_grid(model, L: int, chunk_len: int, margin: int):
     whose output frames do not follow its samples one to one (a pooled
     head) is refused."""
     _check_chunk_len(chunk_len, margin)
-    if hasattr(model, "output_length"):
-        extra = int(model.output_length(chunk_len)) - chunk_len
-        if int(model.output_length(2 * chunk_len)) - 2 * chunk_len != extra:
-            raise ValueError(
-                f"chunked forwards need one logit frame a sample, but this model "
-                f"emits output_length({chunk_len}) = {model.output_length(chunk_len)} "
-                f"frames (a pooled head: L // pool): the chunk grid counts samples, so "
-                f"its slices would not tile the logits (the JAX package fails its "
-                f"stitching check there, inference.py:252)")
-    else:
-        extra = 0
+    extra = output_extension(model, chunk_len) if hasattr(model, "output_length") else 0
     step = chunk_len - 2 * margin
     starts = list(range(0, L - chunk_len + step, step))
     # right-align the last chunk so every raw sample is covered

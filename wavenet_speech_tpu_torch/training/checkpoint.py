@@ -7,11 +7,16 @@ temporary directory first and renamed into place, so a directory named by a
 step is always complete. ``async_save=True`` copies the state to host
 memory, then writes it on a writer thread while training goes on; at most
 one save per directory is in flight, and the interpreter waits for the
-writers before it exits.
+writers before it exits. ``max_to_keep=N`` keeps the newest N step
+directories after a save (orbax's ``max_to_keep``); an async save rotates
+after its write. A rotated directory is first renamed out of the step
+names, so ``latest_step`` and ``restore_checkpoint`` never see one half
+deleted.
 """
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 from typing import Any, Dict, Optional
 
@@ -48,21 +53,36 @@ def _to_host(tree):
                     if torch.is_tensor(t) else t, tree)
 
 
-def _write(ckpt_dir: str, step: int, payload) -> None:
+def _write(ckpt_dir: str, step: int, payload, max_to_keep: Optional[int]) -> None:
     tmp = os.path.join(ckpt_dir, f".{step}.tmp-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
     torch.save(payload, os.path.join(tmp, STATE_FILE))
     os.replace(tmp, os.path.join(ckpt_dir, str(step)))
+    if max_to_keep is not None:
+        _rotate(ckpt_dir, max_to_keep)
+
+
+def _rotate(ckpt_dir: str, max_to_keep: int) -> None:
+    """Delete all but the newest max_to_keep step directories: each is
+    renamed to a hidden name (atomic) before it is removed."""
+    for step in _steps(ckpt_dir)[:-max_to_keep]:
+        doomed = os.path.join(ckpt_dir, f".{step}.del-{os.getpid()}")
+        os.replace(os.path.join(ckpt_dir, str(step)), doomed)
+        shutil.rmtree(doomed)
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
-                    async_save: bool = False) -> int:
+                    async_save: bool = False, max_to_keep: Optional[int] = None) -> int:
     """Save a TrainState under ckpt_dir/<step>/; returns the step saved.
     Saving a step that already exists does nothing (the CLI's save on exit
     often repeats the periodic save's step). With async_save the state is
     copied to the host here and written on a writer thread; the previous
     save to this directory is waited for first. Call
-    wait_for_async_saves() before restoring from the directory."""
+    wait_for_async_saves() before restoring from the directory.
+    max_to_keep: after the write, keep only the newest max_to_keep step
+    directories (None keeps all)."""
+    if max_to_keep is not None and max_to_keep < 1:
+        raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
     step = int(state.step) if step is None else int(step)
     key = os.path.abspath(ckpt_dir)
     wait_for_async_saves(key)  # <= one save in flight per directory
@@ -72,9 +92,9 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None
     payload = {"params": _to_host(state.params), "opt_state": _to_host(state.opt_state),
                "step": step}
     if not async_save:
-        _write(key, step, payload)
+        _write(key, step, payload, max_to_keep)
         return step
-    writer = _Writer(key, step, payload)
+    writer = _Writer(key, step, payload, max_to_keep)
     writer.start()
     _WRITERS[key] = writer
     return step
