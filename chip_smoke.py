@@ -174,6 +174,37 @@ from a seed; B=8 one-hot reads of L=4505):
      peak memory, the step's parts and the card's busy share, the eval
      batch's B1, B6 and native decode, the native library's build; (e) the
      --smoke preset's 150 steps: the per-logit CTC falls, the JSON finite.
+ 13. runs the rest of the multi-device path on gloo ranks of this card.
+     (a) the port's graft_entry.dryrun_multichip(8) on a (data 2, model 2,
+     seq 2) mesh at JAX's sizes: the SP+TP joint step (64 channels, L=1024;
+     B4 and B5 at each of 10 causal blocks, B3), RawCTCNet under SP (B3),
+     the sequence-sharded CTC (B3), a DP+TP make_ctc_train_step step (B1,
+     B2) and both distributed decoders (B6), each held to one device at
+     JAX's tolerances (the joint step's gradients to the same step in
+     float64, within graft_entry.JOINT_SENS x one device's distance), the
+     launches of every check counted on every rank, every CTC and beam
+     call held against its plain version on the inputs it was fed, B4 and
+     B5 against theirs at each causal block of the joint step on every
+     rank's halo window; the joint step once more with the plain blocks,
+     its distance from one device's plain run and from float64 printed
+     beside the kernels'; on 2 ranks: (b) configs/gauss_quality.json's
+     raw-ctcnet pair (BatchNorm1d + RawCTCNet, 512 features) through the
+     joint step with JointLoss("ctc"), 3 Adamax steps on (data 2) and on
+     (seq 2), at full depth and cut: each step's loss, gradient tree and
+     worst gradient leaf no further from the same steps in float64 than
+     SENS_FACTOR x one float32 device is, the running mean and var within
+     1e-5 of one device's, every CTC call (B1/B2 on data, B3 on seq) held
+     against its plain version; (c) the
+     harness's eval architecture (2048 features, 100 blocks, 246.7 M
+     parameters) through make_ctc_train_step with batch_standardize on
+     (model 2), the params and Adamax state split over the ranks: 3 steps,
+     the first loss equal to one device's to the bit, the others within
+     1e-5, the updates within STEP_PARAM_RTOL, each rank's peak memory and
+     state bytes beside one device's; (d) distributed_beam_decode on (data
+     2) and seq_sharded_beam_decode on (seq 2) of gauss_quality's logits,
+     B6 on every rank: equal to one B6 call to the bit; (e) the TP step's
+     ms, its param gather, gradient all-reduce and guard reductions, and
+     the decoders' ms beside one device's.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -235,8 +266,11 @@ from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
 from wavenet_speech_tpu_torch.ops.norm import batch_standardize
+from wavenet_speech_tpu_torch import graft_entry
 from wavenet_speech_tpu_torch.parallel import (collectives, ctc_sharded, make_mesh,
-                                               run_ranks, shard_batch)
+                                               param_shardings, run_ranks, shard_batch,
+                                               shard_params)
+from wavenet_speech_tpu_torch.parallel.sharding import local_slices
 from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_optimizer,
                                                make_eval_step, make_joint_train_step,
                                                param_tree, trainer)
@@ -246,6 +280,7 @@ from wavenet_speech_tpu_torch.training.diagnostics import dump_anomaly
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
                                                        all_reduce_grads, global_norm_safe,
                                                        make_ctc_train_step)
+from wavenet_speech_tpu_torch.utils.device import resolve_device
 from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 SEED = 0
@@ -726,22 +761,7 @@ def ctc_plain():
     return mock.patch.multiple(ctc_scan, ctc_fwd=ctc_fwd_ref, ctc_bwd=ctc_bwd_ref)
 
 
-def reset_counts():
-    fused_gated_block.launches = fused_gated_block_bwd.launches = 0
-    fused_gated_block.launches_bf16 = fused_gated_block_bwd.launches_bf16 = 0
-    ctc_fwd.launches = ctc_bwd.launches = beam_search_kernel.launches = 0
-    ctc_fwd.launches_segment = ctc_bwd.launches_segment = 0
-
-
-def read_counts():
-    return {"fused_gated_block": fused_gated_block.launches,
-            "fused_gated_block_bwd": fused_gated_block_bwd.launches,
-            "fused_gated_block_bf16": fused_gated_block.launches_bf16,
-            "fused_gated_block_bwd_bf16": fused_gated_block_bwd.launches_bf16,
-            "ctc_alpha": ctc_fwd.launches, "ctc_beta": ctc_bwd.launches,
-            "ctc_alpha_segment": ctc_fwd.launches_segment,
-            "ctc_beta_segment": ctc_bwd.launches_segment,
-            "ctc_beam": beam_search_kernel.launches}
+reset_counts, read_counts = graft_entry.reset_launches, graft_entry.launches
 
 
 def bench_batch(dev):
@@ -1590,6 +1610,7 @@ SP_CUT = ([1, 2, 4], [1, 2])  # (b): the depth cut to 3+2 blocks
 SP_LOSS_RTOL, SP_LEAF_RTOL = 1e-5, 1e-4
 SP_FULL_LOSS_RTOL = 1e-4     # (c): full depth, res_w scaled
 SP_STEPS_TIMED = 3
+DP_HELD_BLOCKS = 10          # (d): B4/B5 held on the DP reads at one cycle
 
 
 def logit_frames(signal_lengths):
@@ -1813,8 +1834,11 @@ def sp_rank(device):
     dmesh = make_mesh(data=SP_RANKS, seq=1, device=device)
     model = sp_model(dev)
     batch = shard_batch(dmesh, batch_g)
+    # B4/B5 on the DP reads: the first cycle of dilations (1..512) only, to
+    # keep the script's time as phase 13 joined it (every dilation is held
+    # on the SP windows above and at the whole batch in phases 1 and 5)
     blocks_dp = check_blocks(capture_blocks(model, batch, None, JointLoss("joint"),
-                                            logit_frames, dmesh), dmesh)
+                                            logit_frames, dmesh)[:DP_HELD_BLOCKS], dmesh)
     tx = build_optimizer("adagrad", TRAIN_LR)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
                                  logit_length_fn=logit_frames, mesh=dmesh)
@@ -2012,10 +2036,13 @@ JAX_HEAD_BIAS = (0.6, 0.9, -0.3, 0.1, -0.7)
 LONG_HEAD_BIAS = (JAX_HEAD_BIAS[0] + 2.0, *JAX_HEAD_BIAS[1:])
 
 
-def gauss_model(dev):
+def gauss_model(dev, blocks=None):
     """configs/gauss_quality.json's RawCTCNet at full width from the seed,
-    res_w scaled by 1/sqrt(2) (phase 4)."""
+    res_w scaled by 1/sqrt(2) (phase 4); blocks: its cycles of dilations
+    cut to that many."""
     cfg = json.loads(LONG_CONFIG.read_text())
+    if blocks is not None:
+        cfg["model"]["raw"]["num_dilation_blocks"] = blocks
     model = Model("raw-ctcnet", cfg, device=dev).init(SEED)
     with torch.no_grad():
         for blk in [model.model_ctc.input_block, *model.model_ctc.stack.blocks]:
@@ -2475,10 +2502,10 @@ def ctc_step_run(net, params, batch, plain):
     state = TrainState.create(params, tx)
     grads, guarded = [], trainer._guarded_update
 
-    def record(st, total, g, tx_):
+    def record(st, total, g, *rest):
         if not grads:
             grads.append([t.clone() for t in tree_leaves(g)])
-        return guarded(st, total, g, tx_)
+        return guarded(st, total, g, *rest)
 
     with (ctc_plain() if plain else contextlib.nullcontext()), \
             mock.patch.object(trainer, "_guarded_update", record):
@@ -3673,6 +3700,539 @@ def run_quality(dev, card):
                 params=n_params, tensors=n_tensors, native_build_s=build_s)
 
 
+# ---- 13. the rest of multi-device: TP, RawCTCNet under SP, BatchNorm over DP, the
+# CTC step on a mesh, the distributed decoders -------------------------------------
+
+DRYRUN_RANKS = 8
+# (a): the launches of each dry-run check on every rank (graft_entry's
+# module docstring): the SP+TP joint step's 10 causal blocks, B3 for every
+# sequence-sharded CTC, B1/B2 for the DP+TP step, B6 once a decode
+DRYRUN_LAUNCHES = {
+    "joint": {"fused_gated_block": 10, "fused_gated_block_bwd": 10,
+              "ctc_alpha_segment": 1, "ctc_beta_segment": 1},
+    "raw": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1},
+    "ctc": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1},
+    "step": {"ctc_alpha": 1, "ctc_beta": 1},
+    "decode": {"ctc_beam": 1}, "seq_decode": {"ctc_beam": 1}}
+MULTI_RANKS = 2
+# (b)-(d): a rank's launches a step (the pair, TP) or a decode
+PAIR_LAUNCHES = {"data": {"ctc_alpha": 1, "ctc_beta": 1},
+                 "seq": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1}}
+PAIR_HELD = {"data": {"ctc_alpha", "ctc_beta"}, "seq": {"B3-fwd", "B3-bwd"}}
+TP_LAUNCHES = {"ctc_alpha": 1, "ctc_beta": 1}
+DECODE_LAUNCHES = {"ctc_beam": 1}
+# (b): the 512-feature pair on (data 2) and (seq 2) against one device:
+# the same sums in another order (the gradients summed over two ranks,
+# shorter shards; BatchNorm's statistics are summed in float64, equal to the
+# bit). On the card one float32 device's gradients are 1e-4 (the depth cut
+# to PAIR_CUT_BLOCKS cycles) to 2.4e-3 (full depth) from float64's in
+# relative norm at the first step, more at the next (the first update lands
+# the untrained pair on a loss spike, 3.37 -> 24.9, as phase 10 (d)), so
+# phase 8's fixed bounds are printed, not held: each step's loss,
+# gradient tree and worst gradient leaf on the mesh are held within
+# SENS_FACTOR x one float32 device's distance (its loss, tree, worst leaf)
+# from the same steps in float64 (at least those bounds), as phase 8 (c)
+# holds its full depth to the cuDNN composite's distance. The running
+# statistics after 3 steps at 1e-5.
+PAIR_LOSS_RTOL, PAIR_LEAF_RTOL, PAIR_STATS_RTOL = 1e-5, 1e-4, 1e-5
+PAIR_CUT_BLOCKS = 1
+
+
+class BeamRecorder(Recorder):
+    """A Recorder of B6 (called with keywords): each call's (log-probs,
+    lengths, keywords, the raw state it returned)."""
+
+    def __call__(self, lp, lengths, **kw):
+        out = self.fn(lp, lengths, **kw)
+        self.calls.append((lp.detach().clone(), lengths.clone(), dict(kw), out))
+        return out
+
+
+@contextlib.contextmanager
+def record_beam(calls):
+    """Record every B6 launch, whichever module calls it (its launch count
+    stays the kernel's: the recorder forwards attributes)."""
+    from wavenet_speech_tpu_torch.decoding import distributed as dist_decode
+
+    rec = BeamRecorder(beam_search_kernel, calls)
+    with mock.patch.object(ctc_beam_device, "beam_search_kernel", rec), \
+            mock.patch.object(dist_decode, "beam_search_kernel", rec):
+        yield calls
+
+
+def hold_recorded(rec, beams, label):
+    """Every recorded CTC call (B3 with its carry and t_offset; B1/B2)
+    against the plain loops on the same inputs, every B6 launch against its
+    plain version from the same state (finalized beams: prefixes, lengths,
+    times equal, scores within BEAM_SCORE_ATOL). Returns each kernel's max
+    error and calls held, by its name on the kernels line."""
+    err = {}
+
+    def note(name, e):
+        k = err.setdefault(name, {"err": 0.0, "n": 0})
+        k["err"], k["n"] = max(k["err"], e), k["n"] + 1
+
+    for fa, out in rec["fwd"]:
+        want = ctc_fwd_ref(*fa)
+        note("B3-fwd" if len(fa) > 5 else "ctc_alpha",
+             max(check_close(f"{label} CTC fwd {name}", g, w, CTC_RTOL, CTC_ATOL)
+                 for name, g, w in zip(("ll", "alphas", "alpha_out"), out, want)))
+    for ba, (grad, lpb_out) in rec["bwd"]:
+        want = ctc_bwd_ref(*ba)
+        note("B3-bwd" if len(ba) > 7 else "ctc_beta",
+             max(check_close(f"{label} CTC bwd grad", grad, want[0], CTC_GRAD_RTOL,
+                             CTC_GRAD_ATOL),
+                 check_close(f"{label} CTC bwd lpb_out", lpb_out, want[1], CTC_RTOL,
+                             CTC_ATOL)))
+    for lp, lengths, kw, state in beams:
+        state_in = kw.get("state")
+        want = beam_search_ref(lp, lengths, **dict(kw, state=None if state_in is None else
+                                                   tuple(x.clone() for x in state_in)))
+        note("ctc_beam", compare_beams(beam_finalize(state), beam_finalize(want),
+                                       kw["beam_width"])[1])
+    return err
+
+
+def merge_held(*helds):
+    """Several hold_recorded / hold_blocks results as one: each kernel's
+    max error and its calls summed."""
+    out = {}
+    for held in helds:
+        for name, k in held.items():
+            o = out.setdefault(name, {"err": 0.0, "n": 0})
+            o["err"], o["n"] = max(o["err"], k["err"]), o["n"] + k["n"]
+    return out
+
+
+def joint_shim(inp, mesh):
+    """The dry run's joint models with its whole params, as capture_blocks
+    takes a model, and its joint batch sharded over the mesh."""
+    dev = mesh.device
+    wn, clf = graft_entry._joint_models(dev)
+    params = tree_map(lambda t: t.to(dev), inp["joint_params"])
+    batch = shard_batch(mesh, {k: torch.as_tensor(v).to(dev)
+                               for k, v in inp["joint_batch"].items()}, seq_keys=("signal",))
+    return types.SimpleNamespace(params=lambda: tree_map(torch.clone, params),
+                                 model_base=wn, model_ctc=clf), batch
+
+
+def dryrun13_rank(shape, inp, device):
+    """(a) One rank of graft_entry.dryrun_multichip (module-level: run_ranks
+    spawns it): its checks with every CTC and beam call recorded, then held
+    against their plain versions; B4 and B5 against theirs at each causal
+    block of the joint check on this rank's halo window; the joint check
+    again with the plain blocks."""
+    with record_ctc() as rec, record_beam([]) as beams:
+        out = graft_entry.dryrun_rank(shape, inp, device)
+    check_numerics(f"dry-run rank {dist.get_rank()}")
+    held = hold_recorded(rec, beams, "(a)")
+    del rec, beams
+    data, model, seq = shape
+    mesh = make_mesh(data=data, model=model, seq=seq, device=device)
+    shim, batch = joint_shim(inp, mesh)
+    out["blocks"] = check_blocks(capture_blocks(shim, batch, None, JointLoss("joint"),
+                                                None, mesh), mesh)
+    b = out["blocks"]
+    out["held"] = merge_held(held, {"fused_gated_block": {"err": b["b4_err"], "n": b["n"]},
+                                    "fused_gated_block_bwd": {"err": max(b["b5_err"]),
+                                                              "n": b["n"]}})
+    with causal_blocks_as(fused_gated_block_ref):
+        out["joint_plain"] = graft_entry._joint(mesh.device, inp, mesh)
+    return out
+
+
+def joint_distances(got, one, exact):
+    """The joint check's gradients: the largest ratio of an element's
+    distance from one device's to JAX's elementwise tolerance (1e-6 +
+    1e-4 |one|), and the largest over the leaves of got's max distance
+    from float64 over one device's."""
+    jax_ratio, f64_ratio = 0.0, 0.0
+    for g, w, x in zip(tree_leaves(got), tree_leaves(one), tree_leaves(exact)):
+        g, w, x = (t.detach().double().cpu() for t in (g, w, x))
+        jax_ratio = max(jax_ratio, float(((g - w).abs() / (1e-6 + 1e-4 * w.abs())).max()))
+        f64_ratio = max(f64_ratio, float((g - x).abs().max() / (w - x).abs().max()))
+    return jax_ratio, f64_ratio
+
+
+def run_dryrun(dev, card):
+    """(a) The port's dryrun_multichip(8) on this card: (data 2, model 2,
+    seq 2), every check held to one device (the joint check's gradients to
+    float64), the launches of every check on every rank, B3 and B6 (and the
+    DP+TP step's B1/B2) held to their plain versions on the inputs the
+    checks fed them, B4 and B5 at the joint check's blocks; the joint
+    check's gradients with the kernels and with the plain blocks against
+    JAX's elementwise tolerance and against float64, beside one device's
+    run of the same blocks."""
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(DRYRUN_RANKS, rank_program=dryrun13_rank)
+    secs = time.perf_counter() - t0
+    ranks, refs = res["ranks"], res["references"]
+    for r, out in enumerate(ranks):
+        got = {k: out[k]["launches"] for k in DRYRUN_LAUNCHES if k in out}
+        if got != DRYRUN_LAUNCHES:
+            raise AssertionError(f"(a) rank {r} launches {got}, expected {DRYRUN_LAUNCHES}")
+    held = merge_held(*(r["held"] for r in ranks))
+    if set(held) != {"fused_gated_block", "fused_gated_block_bwd", "ctc_alpha", "ctc_beta",
+                     "B3-fwd", "B3-bwd", "ctc_beam"}:
+        raise AssertionError(f"(a) kernels held {sorted(held)}")
+    with causal_blocks_as(fused_gated_block_ref):
+        one_plain = graft_entry._joint(dev, graft_entry.inputs(res["shape"]))
+    exact = refs["joint64"]["grads"]
+    kern = [joint_distances(r["joint"]["grads"], refs["joint"]["grads"], exact) for r in ranks]
+    plain = [joint_distances(r["joint_plain"]["grads"], one_plain["grads"], exact)
+             for r in ranks]
+    one_kern = max(float((a.double().cpu() - x.double()).abs().max())
+                   for a, x in zip(tree_leaves(refs["joint"]["grads"]), tree_leaves(exact)))
+    one_pl = max(float((a.double().cpu() - x.double()).abs().max())
+                 for a, x in zip(tree_leaves(one_plain["grads"]), tree_leaves(exact)))
+    log(f"(a) dryrun_multichip({DRYRUN_RANKS}) on 1 card, {secs:.1f} s (references and "
+        f"{DRYRUN_RANKS} gloo ranks): mesh {res['shape']}, step mesh {ranks[0]['step_mesh']}; "
+        f"max errors against one device {res['errors']}; launches a rank "
+        f"{ {k: ranks[0][k]['launches'] for k in DRYRUN_LAUNCHES} } on every rank "
+        f"(one device: {res['reference_launches']}); held to the plain versions on every "
+        f"rank: " + ", ".join(f"{k} {v['n']} calls max_abs_err {v['err']:.3e}"
+                              for k, v in held.items()) + f"; card {card}")
+    b = ranks[0]["blocks"]
+    log_blocks("(a) rank 0, the joint check's halo windows", b)
+    log(f"(a) the joint check's gradients on the (2, 2, 2) mesh against one device's (max over "
+        f"the ranks): with the kernels, max |mesh - one| / (1e-6 + 1e-4 |one|) "
+        f"{max(k[0] for k in kern):.2f} (JAX's elementwise bound is 1), the leaf's max "
+        f"distance from float64 up to {max(k[1] for k in kern):.2f} x one device's (bound "
+        f"{graft_entry.JOINT_SENS}); with the plain blocks (cuBLAS float32) on the mesh and on "
+        f"one device, {max(k[0] for k in plain):.2f} and {max(k[1] for k in plain):.2f} x; "
+        f"one device's largest distance from float64: kernels {one_kern:.3e}, plain blocks "
+        f"{one_pl:.3e}; card {card}")
+    return {"launches": {k: ranks[0][k]["launches"] for k in DRYRUN_LAUNCHES},
+            "held": held, "secs": secs, "blocks": b,
+            "joint": dict(kernel_jax=max(k[0] for k in kern), kernel_f64=max(k[1] for k in kern),
+                          plain_jax=max(k[0] for k in plain), plain_f64=max(k[1] for k in plain),
+                          one_kernel=one_kern, one_plain=one_pl)}
+
+
+def pair_steps(model, params, batch, mesh=None):
+    """3 Adamax steps of the joint step (JointLoss("ctc")) on the
+    raw-ctcnet pair, on one device or this rank's shard: the losses, each
+    step's gradient tree as it reaches the optimizer, the final running
+    mean and var, the first step's launches."""
+    tx = build_optimizer("adamax", GAUSS_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("ctc"),
+                                 mesh=mesh)
+    grads, guarded = [], trainer._guarded_update
+
+    def record(st, total, g, *rest):
+        grads.append([t.clone() for t in tree_leaves(g)])
+        return guarded(st, total, g, *rest)
+
+    with mock.patch.object(trainer, "_guarded_update", record):
+        state, hist, launches = train_steps(step, TrainState.create(params, tx), batch)
+    return dict(losses=[h["total_loss"] for h in hist], grads=grads,
+                stats=[state.params["base"][k] for k in ("mean", "var")], launches=launches)
+
+
+def pair_on_mesh(dev, shape, batch_g):
+    """(b) on this rank: the pair's 3 steps on one device (this rank alone)
+    and on the mesh of this shape, with the depth cut to PAIR_CUT_BLOCKS
+    cycles and at full width and depth, there also in float64 on one
+    device. By step: the loss's relative error, the worst gradient leaf's
+    ||g - g_1|| / ||g_1|| and its name, the whole tree's; the mesh's and
+    one float32 device's distances from the float64 steps (the loss, the
+    tree, the worst leaf). The running statistics' error after the 3
+    steps; what is bit-equal; the launches; every CTC call of the mesh's
+    steps held against its plain version."""
+    mesh = make_mesh(data=shape[0], seq=shape[1], device=dev)
+    out = {"mesh": repr(mesh)}
+    for depth, blocks in (("cut", PAIR_CUT_BLOCKS), ("full", None)):
+        _, model = gauss_model(dev, blocks)
+        params = model.params()
+        one = pair_steps(model, params, batch_g)
+        with record_ctc() as rec:
+            got = pair_steps(model, params, shard_batch(mesh, batch_g, seq_keys=("signal",)),
+                             mesh)
+        held = hold_recorded(rec, [], "(b)")
+        del rec
+        f64 = pair_steps(model, tree_map(lambda t: t.double(), params),
+                         dict(batch_g, signal=batch_g["signal"].astype(np.float64)))
+        names = [n for part in ("base", "ctc") for n in params[part]]
+        steps = []
+        for k in range(TRAIN_STEPS):
+            rel = lambda a, b: abs(a["losses"][k] - b["losses"][k]) / abs(b["losses"][k])
+            leaves = leaf_rel_errs(got["grads"][k], one["grads"][k])
+            worst = int(np.argmax(leaves))
+            leaves64 = leaf_rel_errs(got["grads"][k], f64["grads"][k])
+            one_leaves64 = leaf_rel_errs(one["grads"][k], f64["grads"][k])
+            steps.append(dict(loss=rel(got, one), leaf=leaves[worst], leaf_name=names[worst],
+                              tree=rel_err(got["grads"][k], one["grads"][k]),
+                              loss64=rel(got, f64), one_loss64=rel(one, f64),
+                              tree64=rel_err(got["grads"][k], f64["grads"][k]),
+                              one_tree64=rel_err(one["grads"][k], f64["grads"][k]),
+                              leaf64=max(leaves64), one_leaf64=max(one_leaves64),
+                              leaf64_name=names[int(np.argmax(leaves64))]))
+        stats = max(float(((a - b).abs() / b.abs()).max())
+                    for a, b in zip(got["stats"], one["stats"]))
+        bit = dict(losses=got["losses"] == one["losses"],
+                   grads=all(torch.equal(a, b) for g, w in zip(got["grads"], one["grads"])
+                             for a, b in zip(g, w)),
+                   stats=all(torch.equal(a, b) for a, b in zip(got["stats"], one["stats"])))
+        out[depth] = dict(steps=steps, stats=stats, bit=bit, launches=got["launches"], held=held,
+                          one_launches=one["launches"], losses=got["losses"],
+                          one_losses=one["losses"], running=[float(t) for t in got["stats"]])
+        del model, one, got, f64
+    return out
+
+
+def tp_state_bytes(state):
+    return 4 * sum(t.numel() for t in tree_leaves(state.params) + tree_leaves(state.opt_state))
+
+
+def tp_on_mesh(dev, ref_path, batch_g):
+    """(c) on this rank: the harness's eval architecture (2048 features, 100
+    blocks) through make_ctc_train_step with batch_standardize on (model
+    2): 3 Adamax steps, this rank's slices against the single-device
+    steps' (bit for bit), its peak memory and state bytes; (e) the step's
+    ms and, in one more step, its param gather, gradient all-reduce and the
+    guard's reductions (host clock, synchronised)."""
+    mesh = make_mesh(data=1, model=MULTI_RANKS, seq=1, device=dev)
+    net = gaussian_eval.build_model(1.0, nhid=512, device="meta")
+    whole = quality_params()
+    specs = param_shardings(mesh, whole, model_parallel=True)
+    local = shard_params(mesh, whole, model_parallel=True)
+    p0 = local_slices(mesh, whole, specs)   # on the CPU
+    del whole
+    tx = build_optimizer("adamax", GAUSS_LR)
+    state = TrainState.create(local, tx)
+    step = make_ctc_train_step(net, tx, preprocess=batch_standardize, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    history, first = [], None
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        t, (state, m) = host_ms(lambda: step(state, batch_g))
+        ms.append(t)
+        first = first or {k: v for k, v in read_counts().items() if v}
+        history.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    ref = torch.load(ref_path, map_location="cpu", mmap=True, weights_only=True)
+    want = local_slices(mesh, ref["params"], specs)
+    got = {k: v.cpu() for k, v in state.params.items()}
+    bit = all(torch.equal(got[k], want[k]) for k in got)
+    err = max(float((got[k] - want[k]).abs().max()) for k in got)
+    update_err = rel_err([got[k] - p0[k] for k in got], [want[k] - p0[k] for k in got])
+    del got, want, ref, p0
+    gather, reduce, guard = [], [], []
+    with mock.patch.object(trainer, "gather_params", timed(trainer.gather_params, gather)), \
+            mock.patch.object(trainer, "all_reduce_grads", timed(trainer.all_reduce_grads,
+                                                                 reduce)), \
+            mock.patch.object(trainer, "all_reduce", timed(trainer.all_reduce, guard)):
+        step(state, batch_g)
+    n_sharded = sum(s is not None for s in specs.values())
+    return dict(mesh=repr(mesh), losses=[h["ctc_loss"] for h in history],
+                gnorms=[h["grad_norm"] for h in history], launches=first, bit=bit, err=err,
+                update_err=update_err,
+                peak=peak, state_bytes=tp_state_bytes(state), step_ms=sum(ms[1:]) / len(ms[1:]),
+                gather_ms=sum(gather), gather_mb=4 * sum(
+                    state.params[k].numel() for k, s in specs.items() if s is not None)
+                * MULTI_RANKS / 1e6, reduce_ms=sum(reduce), guard_ms=sum(guard),
+                guard_n=len(guard), n_sharded=n_sharded, n_leaves=len(specs))
+
+
+def decoders_on_mesh(dev, logits, lengths):
+    """(d) on this rank: distributed_beam_decode on (data 2) and
+    seq_sharded_beam_decode on (seq 2) of the whole batch's logits, B6 on
+    every rank; (e) their ms (host clock, synchronised, mean of 3 after a
+    warm call; both ranks share the card)."""
+    from wavenet_speech_tpu_torch.decoding import (distributed_beam_decode,
+                                                   seq_sharded_beam_decode)
+    out = {}
+    for name, shape, fn in (("batch", (MULTI_RANKS, 1), distributed_beam_decode),
+                            ("seq", (1, MULTI_RANKS), seq_sharded_beam_decode)):
+        mesh = make_mesh(data=shape[0], seq=shape[1], device=dev)
+        reset_counts()
+        got = fn(mesh, logits, lengths, beam_width=BEAM_WIDTH)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+        ms, _ = host_ms(lambda: fn(mesh, logits, lengths, beam_width=BEAM_WIDTH), 3)
+        out[name] = dict(got=got, launches=launches, ms=ms, mesh=repr(mesh))
+    return out
+
+
+def multi13_rank(device, ref_path, pair_batch, logits, lengths, tp_batch):
+    """(b)-(e) on one of MULTI_RANKS ranks of this card (module-level:
+    run_ranks spawns it)."""
+    dev = torch.device(device)
+    out = {"pair": {name: pair_on_mesh(dev, shape, pair_batch)
+                    for name, shape in (("data", (MULTI_RANKS, 1)), ("seq", (1, MULTI_RANKS)))}}
+    out["decode"] = decoders_on_mesh(dev, logits, lengths)
+    torch.cuda.empty_cache()
+    out["tp"] = tp_on_mesh(dev, ref_path, tp_batch)
+    check_numerics(f"multi-device rank {dist.get_rank()}")
+    return out
+
+
+def quality_params():
+    """The harness's eval architecture's weights from its seed (CPU)."""
+    net = gaussian_eval.build_model(1.0, nhid=512, device="cpu")
+    net.reset_parameters(torch.Generator().manual_seed(gaussian_eval.TRAIN_SEED))
+    return {k: v.detach() for k, v in net.state_dict().items()}
+
+
+def tp_reference(dev, tmp):
+    """(c) one device: the harness's step (make_ctc_train_step with
+    batch_standardize, Adamax) from the seed, 3 steps, on the same batch;
+    its peak memory and state bytes, its ms; the final params saved for the
+    ranks. Returns (the batch, the reference's numbers, the file)."""
+    args = gaussian_eval.parse_args([*QUALITY_WIDTH])
+    b = gaussian_eval.make_loader(args, gaussian_eval.TRAIN_SEED).fetch()
+    batch = {k: getattr(b, k) for k in FIELDS}
+    net = gaussian_eval.build_model(1.0, nhid=512, device="meta")
+    tx = build_optimizer("adamax", GAUSS_LR)
+    step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
+    state = TrainState.create({k: v.to(dev) for k, v in quality_params().items()}, tx)
+    dbatch = batch_to_device(b, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, history = [], []
+    for _ in range(TRAIN_STEPS):
+        t, (state, m) = host_ms(lambda: step(state, dbatch))
+        ms.append(t)
+        history.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    path = tmp / "tp_reference.pt"
+    torch.save({"params": {k: v.cpu() for k, v in state.params.items()}}, path)
+    ref = dict(losses=[h["ctc_loss"] for h in history], gnorms=[h["grad_norm"] for h in history],
+               peak=peak, state_bytes=tp_state_bytes(state), step_ms=sum(ms[1:]) / len(ms[1:]),
+               B=b.signal.shape[0], L=b.signal.shape[1])
+    del state, step, dbatch
+    torch.cuda.empty_cache()
+    return batch, ref, path
+
+
+def run_multi(dev, card):
+    """Phase 13: the rest of the multi-device path. (a) dryrun_multichip(8);
+    (b)-(e) on 2 gloo ranks of this card, against single-device runs.
+    Returns phase 13's launches for the kernels line."""
+    t_start = time.perf_counter()
+    dev = resolve_device(dev)
+    dry = run_dryrun(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        tp_batch, ref, ref_path = tp_reference(dev, Path(tmp))
+        # (b), (d): configs/gauss_quality.json's pair and a raw-gauss batch
+        ds = Dataset("raw-gauss", batch_size=6, min_length=80, max_length=90, upsampling=6,
+                     seed=SEED)
+        b = ds.fetch("train")
+        pair_batch = {k: getattr(b, k) for k in FIELDS}
+        _, model = gauss_model(dev)
+        with torch.no_grad():
+            base = model.eval_base()(torch.from_numpy(b.signal).to(dev))
+            logits = model.model_ctc(base)
+        lengths = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int32, device=dev)
+        one = ctc_beam_search(logits, lengths, beam_width=BEAM_WIDTH, return_times=True)
+        one_ms, _ = host_ms(lambda: ctc_beam_search(logits, lengths, beam_width=BEAM_WIDTH,
+                                                    return_times=True), 3)
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = run_ranks(multi13_rank, MULTI_RANKS, "gloo", str(dev), str(ref_path),
+                          pair_batch, logits.cpu(), lengths.cpu(), tp_batch, timeout=900)
+        secs = time.perf_counter() - t1
+    # (b) the pair on (data 2) and (seq 2)
+    for name in ("data", "seq"):
+        for r, out in enumerate(ranks):
+            p = out["pair"][name]
+            for depth in ("cut", "full"):
+                q = p[depth]
+                log(f"(b) rank {r} {p['mesh']}: gauss_quality's pair (BatchNorm1d + RawCTCNet, "
+                    f"512 features, fk 3, "
+                    + (f"the depth cut to {PAIR_CUT_BLOCKS} x 5 + 1 blocks" if depth == "cut"
+                       else "5 x 5 + 1 blocks")
+                    + f"; JointLoss('ctc'), Adamax {GAUSS_LR}, B=6, L=486), 3 steps against one "
+                    f"device, by step: " + "; ".join(
+                        f"{k + 1}: loss rel {st['loss']:.2e}, worst leaf {st['leaf_name']} "
+                        f"{st['leaf']:.2e}, tree {st['tree']:.2e}; from the float64 steps: "
+                        f"loss {st['loss64']:.2e} (one device's {st['one_loss64']:.2e}), tree "
+                        f"{st['tree64']:.2e} (one device's {st['one_tree64']:.2e}), worst leaf "
+                        f"{st['leaf64_name']} {st['leaf64']:.2e} (one device's worst "
+                        f"{st['one_leaf64']:.2e})"
+                        for k, st in enumerate(q["steps"]))
+                    + f"; running mean/var rel {q['stats']:.2e} (bound {PAIR_STATS_RTOL}); "
+                    f"bit-equal {q['bit']}; CTC calls held to the plain loops: "
+                    + ", ".join(f"{k} {v['n']} max_abs_err {v['err']:.3e}"
+                                for k, v in q["held"].items())
+                    + f"; launches a step {q['launches']} (one device "
+                    f"{q['one_launches']}); losses {q['losses']} (one device {q['one_losses']}); "
+                    f"running mean, var {q['running']}")
+                if q["launches"] != PAIR_LAUNCHES[name]:
+                    raise AssertionError(f"(b) {name} launches {q['launches']}, expected "
+                                         f"{PAIR_LAUNCHES[name]}")
+                if q["stats"] > PAIR_STATS_RTOL:
+                    raise AssertionError(f"(b) {name} {depth}: running statistics differ")
+                if set(q["held"]) != PAIR_HELD[name]:
+                    raise AssertionError(f"(b) {name}: CTC calls held {sorted(q['held'])}")
+                if not all(st["loss64"] <= SENS_FACTOR * max(st["one_loss64"], PAIR_LOSS_RTOL)
+                           and st["tree64"] <= SENS_FACTOR * max(st["one_tree64"],
+                                                                 PAIR_LEAF_RTOL)
+                           and st["leaf64"] <= SENS_FACTOR * max(st["one_leaf64"],
+                                                                 PAIR_LEAF_RTOL)
+                           for st in q["steps"]):
+                    raise AssertionError(f"(b) the pair on {name}, {depth} depth, is further "
+                                         f"from the float64 steps than {SENS_FACTOR} x one "
+                                         f"device")
+    # (c) TP at full width
+    for r, out in enumerate(ranks):
+        t = out["tp"]
+        log(f"(c) rank {r} {t['mesh']}: the harness's eval architecture (246.7 M parameters, "
+            f"{t['n_sharded']} of {t['n_leaves']} leaves split over 'model'), "
+            f"make_ctc_train_step with batch_standardize, Adamax, B={ref['B']}, L={ref['L']}, "
+            f"3 steps: this rank's params against one device's slices: bit-equal {t['bit']}, "
+            f"max_abs_err {t['err']:.3e}, updates ||dp - dp_1|| / ||dp_1|| "
+            f"{t['update_err']:.3e} (bound {STEP_PARAM_RTOL}); losses {t['losses']} (one "
+            f"device {ref['losses']}); grad norms {t['gnorms']} (one device {ref['gnorms']}); "
+            f"launches a step {t['launches']}; peak memory {t['peak'] / 2**30:.2f} GiB (one "
+            f"device {ref['peak'] / 2**30:.2f}); params + Adamax state {t['state_bytes'] / 1e9:.3f} "
+            f"GB (one device {ref['state_bytes'] / 1e9:.3f})")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], ref["losses"]))
+        if not (t["losses"][0] == ref["losses"][0] and loss_rel <= PAIR_LOSS_RTOL
+                and t["update_err"] <= STEP_PARAM_RTOL):
+            raise AssertionError("(c) the TP steps differ from the single-device steps")
+        if t["launches"] != TP_LAUNCHES:
+            raise AssertionError(f"(c) TP launches {t['launches']}")
+    # (d) the decoders, bit for bit against one B6 call
+    for r, out in enumerate(ranks):
+        d = out["decode"]
+        for name, n_out in (("batch", 3), ("seq", 4)):
+            got = d[name]["got"]
+            if not all(torch.equal(a.cpu(), w.cpu()) for a, w in zip(got, one[:n_out])):
+                raise AssertionError(f"(d) rank {r}: the {name}-sharded decode differs from one "
+                                     f"B6 call")
+            if d[name]["launches"] != DECODE_LAUNCHES:
+                raise AssertionError(f"(d) {name} launches {d[name]['launches']}")
+    d0 = ranks[0]["decode"]
+    log(f"(d) gauss_quality's logits (B={logits.shape[0]}, T={logits.shape[1]}, W={BEAM_WIDTH}): "
+        f"distributed_beam_decode on {d0['batch']['mesh']} and seq_sharded_beam_decode on "
+        f"{d0['seq']['mesh']}, B6 once a rank each: prefixes, plens, scores (and the seq "
+        f"decode's times) equal to one B6 call to the bit on every rank")
+    # (e) times
+    for r, out in enumerate(ranks):
+        t, d = out["tp"], out["decode"]
+        log(f"(e) rank {r}: TP train step {t['step_ms']:.1f} ms (host clock, synchronised, mean "
+            f"of steps 2-3; one device {ref['step_ms']:.1f} ms alone; both ranks share the "
+            f"card); in one more step the param gather ({t['gather_mb']:.1f} MB gathered) "
+            f"{t['gather_ms']:.1f} ms, the gradient all-reduce {t['reduce_ms']:.1f} ms (no data "
+            f"or seq axis), the guard's {t['guard_n']} reductions over 'model' "
+            f"{t['guard_ms']:.1f} ms; decoders: batch-sharded {d['batch']['ms']:.2f} ms, "
+            f"seq-sharded {d['seq']['ms']:.2f} ms (one B6 call on the whole batch "
+            f"{one_ms:.2f} ms, host clock); card {card}")
+    log(f"phase 13: {time.perf_counter() - t_start:.1f} s ((a) {dry['secs']:.1f} s, {MULTI_RANKS} "
+        f"ranks {secs:.1f} s)")
+    r0 = ranks[0]
+    pair_held = merge_held(*(out["pair"][n][depth]["held"] for out in ranks
+                             for n in ("data", "seq") for depth in ("cut", "full")))
+    return {"dryrun": dry["launches"], "held": merge_held(dry["held"], pair_held),
+            "pair": {n: r0["pair"][n]["full"]["launches"] for n in ("data", "seq")},
+            "tp": r0["tp"]["launches"],
+            "decode": {n: r0["decode"][n]["launches"] for n in ("batch", "seq")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3831,6 +4391,8 @@ def main() -> int:
     hdf5 = run_hdf5(dev, smi)
     # ---- 12. the quality harness at full width: train, resume, evaluate, bisect
     quality = run_quality(dev, smi)
+    # ---- 13. the rest of multi-device: TP, RawCTCNet SP, BatchNorm over DP, decoders
+    multi = run_multi(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -3906,6 +4468,28 @@ def main() -> int:
             launches=quality["launches"][name], max_abs_err=k["err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k.get("library_ms")))
+    # phase 13's launches a rank, by check, on each kernel's first line
+    dry = multi["dryrun"]
+    phase13 = {
+        "fused_gated_block": {"dryrun joint": dry["joint"]["fused_gated_block"]},
+        "fused_gated_block_bwd": {"dryrun joint": dry["joint"]["fused_gated_block_bwd"]},
+        "ctc_alpha": {"dryrun step": dry["step"]["ctc_alpha"],
+                      "pair on data 2, a step": multi["pair"]["data"]["ctc_alpha"],
+                      "TP on model 2, a step": multi["tp"]["ctc_alpha"]},
+        "ctc_beta": {"dryrun step": dry["step"]["ctc_beta"],
+                     "pair on data 2, a step": multi["pair"]["data"]["ctc_beta"],
+                     "TP on model 2, a step": multi["tp"]["ctc_beta"]},
+        "ctc_beam": {"dryrun decode": dry["decode"]["ctc_beam"],
+                     "dryrun seq_decode": dry["seq_decode"]["ctc_beam"],
+                     "batch-sharded decode": multi["decode"]["batch"]["ctc_beam"],
+                     "seq-sharded decode": multi["decode"]["seq"]["ctc_beam"]}}
+    for name, key in (("B3-fwd", "ctc_alpha_segment"), ("B3-bwd", "ctc_beta_segment")):
+        phase13[name] = {f"dryrun {c}": dry[c][key] for c in ("joint", "raw", "ctc")}
+        phase13[name]["pair on seq 2, a step"] = multi["pair"]["seq"][key]
+    for name, counts in phase13.items():
+        k = next(k for k in kernels if k["name"] == name)
+        k["phase13_launches"] = counts
+        k["phase13_max_abs_err"] = multi["held"][name]["err"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

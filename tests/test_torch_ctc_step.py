@@ -197,14 +197,21 @@ def test_raw_ctcnet_joint_steps_match_jax(length_aware):
     _assert_states_close(tstate, jstate, "nan batch")
 
 
-def test_batchnorm_base_refuses_a_data_parallel_mesh():
+def test_batchnorm_base_takes_a_data_parallel_mesh():
+    """The raw-ctcnet pair's step builds on a mesh of 2 data ranks, which
+    it refused before BatchNorm's statistics were taken over the ranks
+    (trained on 2 ranks in tests/test_torch_raw_ctcnet.py), and outside
+    ``batch_stats`` BatchNorm's statistics stay this rank's batch's."""
     class TwoRanks:
         size = 2
 
         def axis_size(self, name):
             return 2 if name == "data" else 1
 
-    m = Model("raw-ctcnet", _raw_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_joint_train_step(m.model_base, m.model_ctc, build_optimizer("adam", 1e-3),
-                              JointLoss("ctc"), mesh=TwoRanks())
+    m = Model("raw-ctcnet", _raw_cfg(), device="cpu").init(0)
+    make_joint_train_step(m.model_base, m.model_ctc, build_optimizer("adam", 1e-3),
+                          JointLoss("ctc"), mesh=TwoRanks())
+    x = torch.from_numpy(_batch(3)["signal"])
+    with torch.no_grad():
+        want = (x - x.mean()) / torch.sqrt(x.var(unbiased=False) + 1e-5)
+        np.testing.assert_allclose(m.model_base(x).numpy(), want.numpy(), rtol=1e-5, atol=1e-5)

@@ -217,7 +217,21 @@ def test_port_worker_rebuilds_the_realread_fixture(tmp_path):
     np.testing.assert_array_equal(np.asarray(subintervals, np.int64), want["subintervals"])
 
 
-def test_realread_overfit_on_the_port():
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread for the test, whose steps are small:
+    alone on an 8-core CPU it takes 8.1 s so against 10.4 s on 8 threads,
+    and beside the parallel suite's other workers 8 threads took it from
+    21.5 s to 749 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_realread_overfit_on_the_port(one_thread):
     """tests/test_realread_overfit.py on the port: the joint WaveNet-CTC
     (256 levels, 32 channels, 3 + 6 blocks, pool 1; Adam 2e-3) on the
     fixture's levels batch crosses per-char CTC 0.3, stops below 0.02 (at

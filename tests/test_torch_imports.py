@@ -71,6 +71,15 @@ def test_checked_files_cover_the_quality_harness():
     assert (ROOT / "wavenet_speech_tpu_torch" / "native" / "ctc_beam.cc").is_file()
 
 
+def test_checked_files_cover_the_multi_device_slice():
+    """The distributed decoders and the port of __graft_entry__.py are
+    among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("decoding/distributed", "decoding/__init__", "graft_entry",
+                "parallel/sharding", "parallel/collectives"):
+        assert f"wavenet_speech_tpu_torch/{mod}.py" in names
+
+
 def test_hdf5_loaders_import_without_h5py(monkeypatch):
     """The card's machine has no h5py: data/hdf5.py imports it inside the
     loaders' constructors only, so the module (and the facade, the CLI)

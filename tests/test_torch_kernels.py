@@ -14,12 +14,17 @@ kernels and plain versions round the same float32 sums, taken in another
 order, to bf16: an output may be one bf16 step apart (2^-7 of its value),
 plus the float32 term above; the forward also rounds act to bf16 before
 the 1x1 product, where one flipped rounding moves an output by up to
-2^-8 * |out_w| (two allowed)."""
+2^-8 * |out_w| (two allowed). The multi-device cases run 2 gloo ranks on
+the card (``parallel.run_ranks``): the seq-sharded decode's chain of B6
+calls must give the bits of one call, and the gather of CUDA slices the
+slices laid end to end."""
 import numpy as np
 import pytest
 import torch
 
+import torch_rank_programs
 from test_torch_beam_tree import PINNED_DUPLICATE, lp_numpy
+from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref)
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
@@ -28,6 +33,7 @@ from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
+from wavenet_speech_tpu_torch.parallel import run_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -376,3 +382,32 @@ def test_fused_block_bf16_autograd_matches_plain(cuda):
     for name, i in zip(BF16_OUTPUTS, range(7)):
         scale = float(wantb[i].float().abs().max())
         _assert_bf16_close(got[i], wantb[i], (1e-5 if name == "dx" else 1e-4) * scale, name)
+
+
+def test_seq_sharded_decode_chain_equals_one_call(cuda):
+    """B6 on 2 seq ranks of the card, the beam state passed from the first
+    to the second (host-staged over gloo): the bits of one B6 call."""
+    g = torch.Generator().manual_seed(3)
+    B, T, C, W, S = 4, 256, 5, 7, 128
+    logits = 3.0 * torch.randn(B, T, C, generator=g)
+    logits[..., 0] += 6.0 * (torch.rand(B, T, generator=g) < 0.7)
+    lens = torch.tensor([T, T - 40, T - 128, 17], dtype=torch.int32)
+    want = ctc_beam_search(logits.to(cuda), lens, beam_width=W, max_label_len=S,
+                           return_times=True)
+    out = run_ranks(torch_rank_programs.decoders, 2, "gloo", (1, 2), logits, lens, W, S,
+                    "cuda", timeout=300.0)
+    for rank in out:
+        for got in (rank["seq"], rank["seq_data"]):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b.cpu())
+
+
+def test_gloo_gather_of_cuda_slices(cuda):
+    """gather_axis over a "model" line of 2 gloo ranks on the card: each
+    rank's slice of a CUDA tensor, laid end to end on every rank."""
+    x = torch.arange(2 * 3 * 8, dtype=torch.float32).reshape(2, 3, 8) - 20.5
+    for dim in (0, 2):
+        out = run_ranks(torch_rank_programs.gather_model, 2, "gloo", (1, 2, 1), x, dim, "cuda",
+                        timeout=300.0)
+        for got in out:
+            assert torch.equal(got, x)

@@ -43,8 +43,7 @@ from wavenet_speech_tpu_torch.models.classifier import avg_pool1d
 from wavenet_speech_tpu_torch.parallel import (halo_pad, initialize_multihost, is_primary,
                                                local_batch_slice, make_mesh, run_ranks,
                                                seq_axis, shard_batch, shard_params)
-from wavenet_speech_tpu_torch.parallel.mesh import Mesh
-from wavenet_speech_tpu_torch.training import build_optimizer, make_joint_train_step
+from wavenet_speech_tpu_torch.training import make_eval_step
 from wavenet_speech_tpu_torch.utils.tree import tree_leaves
 
 import torch_rank_programs
@@ -87,20 +86,39 @@ def test_single_process_helpers(monkeypatch):
     batch = shard_batch(mesh, {"signal": np.zeros((4, 8, 2)), "labels": np.ones((4, 3))},
                         seq_keys=("signal",))
     assert batch["signal"].shape == (4, 8, 2) and batch["labels"].shape == (4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params(mesh, params, model_parallel=True)
+    whole = shard_params(mesh, params, model_parallel=True)   # a model axis of 1
+    assert torch.equal(whole["a"]["w"], params["a"]["w"])
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh(data=2, device="cpu")
 
 
-def test_model_axis_is_not_ported():
-    """A mesh with a 'model' axis > 1 is refused by the train step: tensor
-    parallelism is not ported."""
-    mesh = Mesh({"data": 1, "model": 2, "seq": 1}, 0, torch.device("cpu"),
-                {"data": [0], "model": [0, 1], "seq": [0]}, {})
+def test_model_axis_trains():
+    """A (data 1, model 2) mesh trains: one joint Adagrad step (length
+    aware) with the params TP-sharded (each rank keeps half of every leaf
+    whose last dim divides) equals JAX's single-device step within 1e-5,
+    the ranks' gathered params are equal to the bit, and the eval step on
+    the TP state gives the single-device eval step's metrics."""
+    params, want, jm = _jax_adagrad_step()
     base, clf = _torch_models()
-    with pytest.raises(NotImplementedError, match="model"):
-        make_joint_train_step(base, clf, build_optimizer("adagrad", 1e-2), mesh=mesh)
+    whole = bridge.param_tree_from_jax(params)
+    out = run_ranks(torch_rank_programs.joint_train_steps, 2, "gloo", (1, 2, 1), base, clf,
+                    whole, _batch(), "adagrad", 1e-2, 1, POOL, timeout=TIMEOUT)
+    w = whole["base"]["stack.blocks.0.gate_w"]
+    assert out[0]["local_shapes"]["base"]["stack.blocks.0.gate_w"] == (*w.shape[:-1],
+                                                                        w.shape[-1] // 2)
+    for a, b in zip(tree_leaves(out[1]["params"]), tree_leaves(out[0]["params"])):
+        assert torch.equal(a, b)
+    for k, v in out[0]["metrics"][0].items():
+        np.testing.assert_allclose(float(v), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    for part in ("base", "ctc"):
+        for name, p in out[0]["params"][part].items():
+            np.testing.assert_allclose(p.numpy(), want[part][name].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{part}.{name}")
+    single = make_eval_step(base, clf, logit_length_fn=lambda l: l // POOL)(
+        out[0]["params"], _batch())
+    for k, v in single.items():
+        for o in out:
+            np.testing.assert_allclose(float(o["eval"][k]), float(v), rtol=1e-6, err_msg=k)
 
 
 def test_pool_needs_whole_windows_in_a_shard():
@@ -264,18 +282,26 @@ def test_sp_joint_loss_and_grads_match_jax(data, seq, length_aware):
                                            err_msg=f"rank {r} {part}.{name}", **GRAD)
 
 
-@pytest.mark.parametrize("data,seq", [(2, 1), (2, 2)])
-def test_adagrad_step_matches_jax(data, seq):
-    """One joint Adagrad step, length-aware, on data=2 (DP) and data=2 x
-    seq=2: the params of every rank equal each other bit for bit and the
-    JAX step's within 1e-5; the metrics within 1e-5."""
+@functools.lru_cache(maxsize=None)
+def _jax_adagrad_step():
+    """JAX's single-device joint Adagrad step, length-aware: its params
+    before (JAX's tree), after (the port's tree) and its metrics."""
     jnet, jclf, params = _jax_models()
     jtx = j_build_optimizer("adagrad", 1e-2)
     jstep = j_make_joint_train_step(jnet, jclf, jtx, JJointLoss("joint"), donate=False,
                                     logit_length_fn=lambda l: l // POOL)
     jstate, jm = jstep(JTrainState.create(params, jtx),
                        {k: jnp.asarray(v) for k, v in _batch().items()})
-    want = bridge.param_tree_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    return (params, bridge.param_tree_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params)),
+            {k: float(v) for k, v in jm.items()})
+
+
+@pytest.mark.parametrize("data,seq", [(2, 1), (2, 2)])
+def test_adagrad_step_matches_jax(data, seq):
+    """One joint Adagrad step, length-aware, on data=2 (DP) and data=2 x
+    seq=2: the params of every rank equal each other bit for bit and the
+    JAX step's within 1e-5; the metrics within 1e-5."""
+    params, want, jm = _jax_adagrad_step()
     base, clf = _torch_models()
     out = _ranks(torch_rank_programs.joint_train_steps, data, seq, base, clf,
                  bridge.param_tree_from_jax(params), _batch(), "adagrad", 1e-2, 1, POOL)

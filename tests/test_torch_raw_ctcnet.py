@@ -214,3 +214,194 @@ def test_hardtanh_and_with_noise():
         np.eye(*shape)
     for a in (got.numpy(), ref):
         assert abs(a.mean()) < 2e-6 and abs(a.std() / 1e-4 - 1) < 0.02
+
+
+# ---- RawCTCNet under SP and the raw-ctcnet pair on DP/SP meshes (gloo ranks) ------
+
+from wavenet_speech_tpu.ops.ctc import ctc_loss_per_seq as j_ctc_loss_per_seq  # noqa: E402
+from wavenet_speech_tpu.training import JointLoss as JJointLoss  # noqa: E402
+from wavenet_speech_tpu_torch.parallel import run_ranks, seq_axis  # noqa: E402
+from wavenet_speech_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from wavenet_speech_tpu_torch.training import JointLoss  # noqa: E402
+
+import torch_rank_programs  # noqa: E402
+
+SP_B, SP_L, SP_LABELS = 4, 64, 6
+SP_CASES = [(3, 2), (5, 2), (5, 4)]      # (feature_kwidth, seq shards)
+POS_CASES = {2: 3, 4: 5}                  # seq shards -> feature_kwidth, positions in f64
+PAIR_MESHES = {"data": (2, 1), "seq": (1, 2)}
+
+
+def _sp_nets(fk, positions=False):
+    """JAX's RawCTCNet and its float32 params (numpy), the port's and its
+    params."""
+    layers = tuple((F, F, 3, d) for d in (1, 2))
+    jnet = JRawCTCNet(F, fk, 5, layers, F, positions=positions, softmax=False)
+    params = _np_tree(jnet.init(jax.random.PRNGKey(fk)))
+    tnet = RawCTCNet(F, fk, 5, layers, F, positions=positions, softmax=False, device="cpu")
+    return jnet, params, tnet, bridge.raw_ctcnet_from_jax(params)
+
+
+def _sp_labels():
+    rng = np.random.default_rng(11)
+    return (rng.integers(1, 5, size=(SP_B, SP_LABELS)).astype(np.int32),
+            np.array([6, 5, 3, 6], np.int32))
+
+
+def _pos_weight(fk):
+    return np.random.default_rng(fk + 1).standard_normal((SP_B, SP_L + fk - 1, 5))
+
+
+def _pair_batch():
+    rng = np.random.default_rng(21)
+    labels, ll = _sp_labels()
+    return {"signal": (80 + 8 * rng.standard_normal((SP_B, SP_L, 1))).astype(np.float32),
+            "labels": labels, "label_lengths": ll}
+
+
+@pytest.fixture(scope="module")
+def sp_runs():
+    """One world of 2 ranks and one of 4: RawCTCNet under SP (the CTC loss
+    and gradients; with positions, the float64 logits and the gradient of
+    a weighted sum of them), and the raw-ctcnet pair's objective and one
+    Adamax step on (data 2) and (seq 2)."""
+    x = _raw(SP_B, SP_L, 9)
+    labels, ll = _sp_labels()
+    rp = torch_rank_programs
+    runs = {}
+    for n in (2, 4):
+        calls = [(rp.raw_ctcnet_sp, ((1, n), _sp_nets(fk)[2], _sp_nets(fk)[3], x, labels, ll))
+                 for fk, m in SP_CASES if m == n]
+        fk = POS_CASES[n]
+        _, _, tnet, tparams = _sp_nets(fk, True)
+        calls.append((rp.raw_ctcnet_sp, ((1, n), tnet.double(),
+                                         {k: v.double() for k, v in tparams.items()},
+                                         x.astype(np.float64), None, None, _pos_weight(fk))))
+        if n == 2:
+            m = Model("raw-ctcnet", raw_cfg(), device="cpu")
+            params = bridge.param_tree_from_jax(_np_tree(_pair_jax()[1]))
+            for shape in PAIR_MESHES.values():
+                calls.append((rp.joint_value_and_grad, (shape, m.model_base, m.model_ctc,
+                                                        params, _pair_batch(), None,
+                                                        JointLoss("ctc"))))
+                calls.append((rp.joint_train_steps, (shape, m.model_base, m.model_ctc, params,
+                                                     _pair_batch(), "adamax", 2e-4, 1, None,
+                                                     JointLoss("ctc"))))
+        runs[n] = run_ranks(rp.several, n, "gloo", calls, timeout=180.0)
+    return runs
+
+
+@pytest.mark.parametrize("fk,n", SP_CASES)
+def test_raw_ctcnet_sp_loss_and_grads_match_jax(sp_runs, fk, n):
+    """CTC (a batch sum over T = L + fk - 1) of RawCTCNet on n seq shards
+    against JAX's single device: the loss rtol 1e-5, every gradient leaf
+    rtol 1e-4, atol 1e-5 (__graft_entry__.py's tolerances)."""
+    jnet, params, _, _ = _sp_nets(fk)
+    labels, ll = _sp_labels()
+    x = jnp.asarray(_raw(SP_B, SP_L, 9))
+
+    def loss(p):
+        logits = jnet.apply(p, x)
+        T = logits.shape[1]
+        return jnp.sum(j_ctc_loss_per_seq(logits, jnp.full((SP_B,), T, jnp.int32),
+                                          jnp.asarray(labels), jnp.asarray(ll))) / T
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    want = bridge.raw_ctcnet_from_jax(_np_tree(grads))
+    k = [c for c in SP_CASES if c[1] == n].index((fk, n))
+    for r, out in enumerate(sp_runs[n]):
+        got = out[k]
+        np.testing.assert_allclose(float(got["total"]), float(value), rtol=1e-5)
+        assert got["logits"].shape == (SP_B, SP_L + fk - 1, 5)
+        for name, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=f"rank {r} {name}")
+
+
+@pytest.mark.parametrize("n", sorted(POS_CASES))
+def test_raw_ctcnet_sp_positions_exact_in_float64(sp_runs, n):
+    """With positions (global frame indices under SP), in float64: the
+    gathered logits and the gradients of sum(w * logits) equal JAX's
+    single device to 1e-10 (tests/test_seq_parallel_training.py's exact
+    float64 check; the port's CTC is float32, so the objective here is
+    linear in the logits)."""
+    fk = POS_CASES[n]
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jnet, params, _, _ = _sp_nets(fk, True)
+        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params)
+        x = jnp.asarray(_raw(SP_B, SP_L, 9), jnp.float64)
+        w = jnp.asarray(_pos_weight(fk))
+        logits = jax.jit(jnet.apply)(params, x)
+        grads = jax.jit(jax.grad(lambda p: jnp.sum(jnet.apply(p, x) * w)))(params)
+        logits, grads = np.asarray(logits), _np_tree(grads)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    # the JAX leaf of each port name (the bridge rounds values to float32)
+    leaves, treedef = jax.tree_util.tree_flatten(grads)
+    ids = bridge.raw_ctcnet_from_jax(jax.tree_util.tree_unflatten(
+        treedef, [np.full(np.shape(a), i, np.float32) for i, a in enumerate(leaves)]))
+    want = {k: leaves[int(v.reshape(-1)[0])] for k, v in ids.items()}
+    for out in sp_runs[n]:
+        got = out[-1] if n == 4 else out[2]
+        np.testing.assert_allclose(got["logits"].numpy(), logits, rtol=1e-10, atol=1e-10)
+        for name, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), want[name], rtol=1e-10, atol=1e-10,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("fk,n", [(4, 2), (3, 4)])
+def test_raw_ctcnet_sp_needs_shards_to_divide_fk_minus_1(fk, n):
+    """JAX's ValueError, raised before any collective."""
+    _, _, tnet, tparams = _sp_nets(fk)
+    tnet.load_state_dict(tparams)
+    mesh = Mesh({"data": 1, "model": 1, "seq": n}, 0, torch.device("cpu"), {}, {})
+    with pytest.raises(ValueError, match="feature_kwidth"), seq_axis(mesh):
+        tnet(torch.zeros(1, 16, 1))
+
+
+def _pair_jax():
+    jm = jfacade.Model("raw-ctcnet", raw_cfg())
+    return jm, jm.init(jax.random.PRNGKey(7))
+
+
+@pytest.fixture(scope="module")
+def pair_ref():
+    """JAX's single-device objective, gradients and one Adamax step of the
+    raw-ctcnet pair."""
+    jm, params = _pair_jax()
+    b = {k: jnp.asarray(v) for k, v in _pair_batch().items()}
+
+    def loss(p):
+        pred = jm.model_base.apply(p["base"], b["signal"])
+        logits = jm.model_ctc.apply(p["ctc"], pred)
+        return JJointLoss("ctc").calculate(b["signal"], pred, logits, b["labels"],
+                                           b["label_lengths"])[1]
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    want = bridge.param_tree_from_jax(_np_tree(grads))
+    # the running statistics after one step: update_state from the old ones
+    stats = jm.model_base.update_state(params["base"], params["base"], b["signal"])
+    return float(value), want, stats
+
+
+@pytest.mark.parametrize("mesh", sorted(PAIR_MESHES))
+def test_raw_ctcnet_pair_on_dp_and_sp_matches_jax(sp_runs, pair_ref, mesh):
+    """BatchNorm1d + RawCTCNet with JointLoss("ctc") on (data 2) and (seq
+    2): BatchNorm's statistics are the global batch's, so the loss (rtol
+    1e-5) and every gradient (rtol 1e-4, atol 1e-5) are JAX's single
+    device's, and after one Adamax step every rank's running mean and var
+    are JAX's update_state within 1e-6."""
+    value, want, stats = pair_ref
+    k = 3 + 2 * list(PAIR_MESHES).index(mesh)
+    for r, out in enumerate(sp_runs[2]):
+        vg, step = out[k], out[k + 1]
+        np.testing.assert_allclose(float(vg["total"]), value, rtol=1e-5)
+        for part in ("base", "ctc"):
+            for name, g in vg["grads"][part].items():
+                np.testing.assert_allclose(g.numpy(), want[part][name].numpy(), rtol=1e-4,
+                                           atol=1e-5, err_msg=f"rank {r} {part}.{name}")
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(step["params"]["base"][key].numpy(),
+                                       np.asarray(stats[key]), rtol=1e-6, atol=1e-6,
+                                       err_msg=f"rank {r} {key}")

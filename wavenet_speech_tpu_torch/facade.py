@@ -38,6 +38,7 @@ from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2s
 from wavenet_speech_tpu_torch.decoding.prefix_beam import beam_search_decode
 from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, WaveNetClassifier
 from wavenet_speech_tpu_torch.native import ctc_beam_search_native
+from wavenet_speech_tpu_torch.parallel.collectives import mean_var
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
 from wavenet_speech_tpu_torch.training.trainer import param_tree
 from wavenet_speech_tpu_torch.utils.config import (base_model_cfg, classifier_cfg,
@@ -55,9 +56,13 @@ class BatchNorm1d(nn.Module):
     (B, L), as torch's train mode; the train step then calls
     ``update_state``, which keeps the running mean and unbiased variance as
     torch's momentum EMA. ``eval_form()`` normalizes with the running
-    statistics, as torch's ``.eval()``."""
+    statistics, as torch's ``.eval()``. On a mesh (inside
+    ``parallel.collectives.batch_stats``, which the train step enters) the
+    batch is the global one: both take their statistics over every rank of
+    the "data" and "seq" lines (``collectives.mean_var``), as the JAX step
+    jitted on a sharded batch does, so every rank holds the same running
+    statistics."""
 
-    running_statistics = True  # batch statistics in training: one rank's batch
     EPS = 1e-5
     MOMENTUM = 0.1
 
@@ -85,18 +90,18 @@ class BatchNorm1d(nn.Module):
         if self.use_running:
             mean, var = self.mean, self.var
         else:
-            mean = x.mean(dim=(0, 1))
-            var = x.var(dim=(0, 1), unbiased=False)
+            mean, var, _ = mean_var(x, (0, 1))
         return self.gamma * (x - mean) * torch.rsqrt(var + self.EPS) + self.beta
 
     def update_state(self, old_params, new_params, *inputs):
         """new_params with mean and var replaced by the EMA
         (1 - m) * old + m * batch, from old_params' running statistics and
-        the batch's mean and unbiased variance over (B, L) of inputs[0]."""
-        x = inputs[0].detach()
-        n = x.shape[0] * x.shape[1]
-        bm = x.mean(dim=(0, 1))
-        bv = x.var(dim=(0, 1), unbiased=False) * (n / max(n - 1, 1))
+        the batch's mean and unbiased variance over (B, L) of inputs[0]
+        (the global batch's inside ``batch_stats``: n counts every rank's
+        frames)."""
+        bm, bv, n = mean_var(inputs[0].detach(), (0, 1))
+        shape = old_params["mean"].shape
+        bm, bv = bm.reshape(shape), bv.reshape(shape) * (n / max(n - 1, 1))
         m = self.MOMENTUM
         return dict(new_params, mean=(1 - m) * old_params["mean"] + m * bm,
                     var=(1 - m) * old_params["var"] + m * bv)

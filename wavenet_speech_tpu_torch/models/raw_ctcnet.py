@@ -12,9 +12,16 @@ Init (raw_ctcnet.py:29-31, 65-100): kaiming-uniform weights; eye + 1e-4
 noise bottlenecks and position mixer; zero + 1e-4 noise biases.
 
 Non-causal blocks (the default) run the composite; with ``causal=True`` the
-blocks run the fused block, which is its kernel on the card. The JAX
-package's sequence-sharded featurizer (raw_ctcnet.py:125-140) is not
-ported: under ``parallel.halo.seq_axis`` the forward raises.
+blocks run the fused block, which is its kernel on the card.
+
+Under sequence parallelism (``parallel.halo.seq_axis``; JAX's
+raw_ctcnet.py:120-155) the featurizer, which lengthens the time axis by
+h = fk - 1, runs shard by shard: the valid conv over the shard with h
+frames of halo on both sides gives the global frames [s*Ls, s*Ls + Ls + h)
+on shard s, of which each shard keeps its even share of the L + h global
+frames, Ls + h/n starting at s * h/n (so n must divide h, JAX's
+ValueError). The positions are global frame indices. The blocks after it
+exchange their own halos (``models.blocks``).
 
 It trains behind ``facade.BatchNorm1d`` through the joint step with
 ``JointLoss("ctc")`` (the CLI's raw-ctcnet), or alone through
@@ -32,7 +39,7 @@ from wavenet_speech_tpu_torch.models.stack import LayerSpec, SkipSumStack
 from wavenet_speech_tpu_torch.nn import initializers as init
 from wavenet_speech_tpu_torch.ops.activations import hardtanh, leaky_relu
 from wavenet_speech_tpu_torch.ops.conv import CausalConv1d, Dense, _conv1d
-from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis
+from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
 EPS = 1e-4
 noisy_zeros = init.with_noise(init.zeros, EPS)
@@ -80,15 +87,27 @@ class RawCTCNet(nn.Module):
 
     def forward(self, seq):
         """seq (B, L, 1) raw waveform -> (B, L + fk - 1, num_labels)."""
-        if current_seq_axis() is not None:
-            raise NotImplementedError(
-                "RawCTCNet under sequence parallelism is not ported (ROADMAP A12)")
         h = self.feature_kwidth - 1
-        out = _conv1d(seq, self.feat_conv.w, dilation=1, pad_left=h, pad_right=h)
+        mesh = current_seq_axis()
+        if mesh is not None and h > 0:
+            n, i = mesh.axis_size("seq"), mesh.axis_index("seq")
+            if h % n:
+                raise ValueError(
+                    f"sequence-sharded RawCTCNet needs seq shards ({n}) to divide "
+                    f"feature_kwidth-1 ({h}) so the L+fk-1 output shards evenly; "
+                    f"pick fk == 1 (mod n_seq)")
+            v = _conv1d(halo_pad(seq, h, h, mesh), self.feat_conv.w, dilation=1,
+                        pad_left=0, pad_right=0)               # (B, Ls + h, F)
+            share = h // n
+            out = v[:, i * share:i * share + seq.shape[1] + share]
+        else:
+            out = _conv1d(seq, self.feat_conv.w, dilation=1, pad_left=h, pad_right=h)
         out = leaky_relu(out + self.feat_conv.b)
         out = leaky_relu(out @ self.feat_1x1.w[0] + self.feat_1x1.b)
         if self.positions:
             pos = torch.arange(out.shape[1], dtype=out.dtype, device=out.device)[None, :, None]
+            if mesh is not None:   # the global frame index
+                pos = pos + mesh.axis_index("seq") * out.shape[1]
             p = self.positions_1x1
             out = out + hardtanh(pos @ p.w + p.b)
         out, skip = self.input_block(out)

@@ -11,6 +11,7 @@ a = sqrt(5)) give another bound and are not used.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -53,11 +54,14 @@ def zeros(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Te
     return torch.zeros(shape)
 
 
+def _noisy(base_init, eps: float, shape: Shape,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return base_init(shape, generator) + eps * torch.randn(shape, generator=generator)
+
+
 def with_noise(base_init, eps: float):
     """base_init plus eps * N(0, 1) noise, drawn from the same generator
-    (the RawCTCNet init: eye or zeros + 1e-4 noise)."""
-
-    def init(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return base_init(shape, generator) + eps * torch.randn(shape, generator=generator)
-
-    return init
+    (the RawCTCNet init: eye or zeros + 1e-4 noise). A partial of a
+    module-level function, so a module holding it pickles (to the ranks
+    of ``parallel.run_ranks``)."""
+    return functools.partial(_noisy, base_init, eps)

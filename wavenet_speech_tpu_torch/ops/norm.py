@@ -13,16 +13,18 @@ from typing import Optional
 import torch
 from torch import nn
 
+from wavenet_speech_tpu_torch.parallel.collectives import mean_var
+
 
 def batch_standardize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x normalized to zero mean and unit (biased) variance over every axis
     but the last: the training-mode statistics of the reference's
     ``nn.BatchNorm1d(1)`` base model, without its affine (the conv that
     follows absorbs it). Padding frames count in the statistics, as in the
-    reference."""
-    axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes, keepdim=True)
-    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    reference. Inside ``parallel.collectives.batch_stats`` (the CTC step's
+    ``preprocess`` on a mesh) the statistics are the global batch's, over
+    every rank of the "data" and "seq" lines."""
+    mean, var, _ = mean_var(x, tuple(range(x.dim() - 1)))
     return (x - mean) * torch.rsqrt(var + eps)
 
 

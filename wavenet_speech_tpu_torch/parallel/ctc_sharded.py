@@ -29,7 +29,7 @@ import torch
 
 from wavenet_speech_tpu_torch.ops import ctc_scan
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
-from wavenet_speech_tpu_torch.parallel.collectives import (all_reduce_sum, p2p,
+from wavenet_speech_tpu_torch.parallel.collectives import (all_reduce, p2p,
                                                            psum_cotangent)
 from wavenet_speech_tpu_torch.parallel.mesh import Mesh
 
@@ -51,7 +51,7 @@ class _SegmentChain(torch.autograd.Function):
                                                  label_lengths, alpha_in, i * Tl)
         if i < n - 1:
             p2p(mesh, "seq", [(i + 1, alpha_out)], [])
-        ll = all_reduce_sum(ll if i == n - 1 else torch.zeros_like(ll), mesh, "seq")
+        ll = all_reduce(ll if i == n - 1 else torch.zeros_like(ll), mesh, "seq")
         ctx.save_for_backward(lp_ext_t, alphas, skipadd, lengths, label_lengths, ll)
         ctx.mesh = mesh
         return ll

@@ -10,13 +10,18 @@ collective whose peer has died would otherwise wait forever.
 
 fn must be importable by name (a module-level function; spawn pickles it
 by reference), in a module the ranks can import (spawn gives them the
-caller's ``sys.path``), such as chip_smoke.py's ``sp_rank``.
+caller's ``sys.path``), such as chip_smoke.py's ``sp_rank``. fn and args
+reach the ranks through a queue, not the process's start arguments: a
+spawned child reads those only as it imports what they name (torch, fn's
+module), so a start argument past a pipe's buffer would hold each start
+for seconds.
 """
 from __future__ import annotations
 
 import io
 import multiprocessing
 import os
+import pickle
 import queue
 import socket
 import time
@@ -40,9 +45,10 @@ def _to_cpu(x):
     return x.detach().cpu() if torch.is_tensor(x) else x
 
 
-def _rank_main(fn, rank, world_size, backend, port, threads, results, args):
+def _rank_main(rank, world_size, backend, port, threads, inputs, results):
     try:
         torch.set_num_threads(threads)
+        fn, args = pickle.loads(inputs.get())
         initialize_multihost(f"tcp://127.0.0.1:{port}", world_size, rank, backend)
         out = fn(*args)
         buf = io.BytesIO()
@@ -62,14 +68,16 @@ def run_ranks(fn: Callable, world_size: int, backend: str, *args: Any,
     Raises RuntimeError if a rank fails or dies, or the run outlasts
     timeout seconds; every rank is stopped first."""
     ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
+    inputs, results = ctx.Queue(), ctx.Queue()
     port = free_port()
     threads = max(1, (os.cpu_count() or 1) // world_size)
+    payload = pickle.dumps((fn, args))
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, world_size, backend, port, threads, results, args))
+                         args=(r, world_size, backend, port, threads, inputs, results))
              for r in range(world_size)]
     for p in procs:
         p.start()
+        inputs.put(payload)
     out: Dict[int, Any] = {}
     deadline = time.monotonic() + timeout
     failure = None

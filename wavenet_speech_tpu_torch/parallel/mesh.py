@@ -2,8 +2,9 @@
 (wavenet_speech_tpu/parallel/mesh.py:19-46).
 
 Axes, as in JAX:
-  data  - batch (DP): the gradients are summed over every rank;
-  model - channels (TP): not ported (``sharding.shard_params``);
+  data  - batch (DP): the gradients are summed over the data and seq lines;
+  model - channels (TP): params stored as output-channel slices and
+          gathered at use (``parallel.sharding``);
   seq   - time (SP): the halo exchange at every conv (``parallel.halo``)
           and the sequence-sharded CTC (``parallel.ctc_sharded``).
 

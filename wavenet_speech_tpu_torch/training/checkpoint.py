@@ -12,6 +12,14 @@ directories after a save (orbax's ``max_to_keep``); an async save rotates
 after its write. A rotated directory is first renamed out of the step
 names, so ``latest_step`` and ``restore_checkpoint`` never see one half
 deleted.
+
+A TP state (``parallel.shard_params(..., model_parallel=True)``: each rank
+holds its slices of the params and of the optimizer state) is saved whole:
+with ``mesh`` and the params' ``specs`` every rank gathers the whole state
+over its "model" line and the primary rank writes it. Restoring with
+``mesh`` and ``specs`` into such a template takes each rank's slices. So a
+checkpoint is the same file whatever the mesh that wrote it, and restores
+on one device or on a TP mesh alike.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from wavenet_speech_tpu_torch.parallel.mesh import Mesh
+from wavenet_speech_tpu_torch.parallel.sharding import (gather_params, local_slices,
+                                                        state_specs, tp_sharded)
 from wavenet_speech_tpu_torch.training.trainer import TrainState
 from wavenet_speech_tpu_torch.utils.tree import tree_map
 
@@ -72,7 +83,8 @@ def _rotate(ckpt_dir: str, max_to_keep: int) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
-                    async_save: bool = False, max_to_keep: Optional[int] = None) -> int:
+                    async_save: bool = False, max_to_keep: Optional[int] = None,
+                    mesh: Optional[Mesh] = None, specs: Any = None) -> int:
     """Save a TrainState under ckpt_dir/<step>/; returns the step saved.
     Saving a step that already exists does nothing (the CLI's save on exit
     often repeats the periodic save's step). With async_save the state is
@@ -80,17 +92,25 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None
     save to this directory is waited for first. Call
     wait_for_async_saves() before restoring from the directory.
     max_to_keep: after the write, keep only the newest max_to_keep step
-    directories (None keeps all)."""
+    directories (None keeps all). mesh and specs: a TP state, gathered
+    whole (every rank must call this), written by the mesh's rank 0."""
     if max_to_keep is not None and max_to_keep < 1:
         raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
     step = int(state.step) if step is None else int(step)
+    params, opt_state = state.params, state.opt_state
+    if tp_sharded(mesh, specs):
+        with torch.no_grad():
+            params = gather_params(mesh, params, specs)
+            opt_state = gather_params(mesh, opt_state,
+                                      state_specs(opt_state, state.params, specs))
+        if mesh.rank != 0:
+            return step
     key = os.path.abspath(ckpt_dir)
     wait_for_async_saves(key)  # <= one save in flight per directory
     os.makedirs(key, exist_ok=True)
     if os.path.isdir(os.path.join(key, str(step))):
         return step
-    payload = {"params": _to_host(state.params), "opt_state": _to_host(state.opt_state),
-               "step": step}
+    payload = {"params": _to_host(params), "opt_state": _to_host(opt_state), "step": step}
     if not async_save:
         _write(key, step, payload, max_to_keep)
         return step
@@ -142,18 +162,23 @@ def _like(got, like, path: str = ""):
 
 
 def restore_checkpoint(ckpt_dir: str, state_like: TrainState,
-                       step: Optional[int] = None) -> TrainState:
+                       step: Optional[int] = None, mesh: Optional[Mesh] = None,
+                       specs: Any = None) -> TrainState:
     """The checkpoint at ``step`` (default the latest) as a TrainState of
     state_like's structure, on its devices; raises ValueError when the
-    structure, a shape or a type differs."""
+    structure, a shape or a type differs. With mesh and specs, state_like
+    is a TP state: each rank takes its slices of the whole checkpoint."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     payload = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE),
                          map_location="cpu", weights_only=True)
-    return TrainState(params=_like(payload["params"], state_like.params, "params"),
-                      opt_state=_like(payload["opt_state"], state_like.opt_state,
-                                      "opt_state"),
+    params, opt_state = payload["params"], payload["opt_state"]
+    if tp_sharded(mesh, specs):
+        opt_state = local_slices(mesh, opt_state, state_specs(opt_state, params, specs))
+        params = local_slices(mesh, params, specs)
+    return TrainState(params=_like(params, state_like.params, "params"),
+                      opt_state=_like(opt_state, state_like.opt_state, "opt_state"),
                       step=torch.tensor(payload["step"], dtype=torch.int32,
                                         device=state_like.step.device))
 

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from wavenet_speech_tpu_torch.ops.ctc import ctc_loss_per_seq
-from wavenet_speech_tpu_torch.parallel.collectives import all_reduce_sum
+from wavenet_speech_tpu_torch.parallel.collectives import STAT_AXES, all_reduce
 from wavenet_speech_tpu_torch.parallel.ctc_sharded import ctc_loss_seq_sharded
 from wavenet_speech_tpu_torch.parallel.halo import halo_pad
 from wavenet_speech_tpu_torch.parallel.mesh import Mesh
@@ -71,9 +71,10 @@ def _xe_share(signal, signal_pred, signal_lengths, mesh: Mesh) -> torch.Tensor:
 
 
 def _global(share: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of every rank's share, whose gradient is this rank's
+    """The sum of the shares over the data and seq lines (the ranks of a
+    "model" line hold the same share), whose gradient is this rank's
     share's."""
-    total = all_reduce_sum(share.detach(), mesh)
+    total = all_reduce(share, mesh, STAT_AXES)
     return share + (total - share.detach())
 
 

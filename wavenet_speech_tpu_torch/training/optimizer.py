@@ -21,8 +21,10 @@ and added to the params by ``apply_updates``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
@@ -229,7 +231,12 @@ def build_optimizer(optim_type: str, learning_rate: ScalarOrSchedule,
     """The chain of optimizer.py:154-193: [safe grad clip] [weight decay]
     rule [safe update clip]. max_grad_norm clips the raw gradients,
     max_update_norm the rule's update (the scale-correct guard for adaptive
-    rules: batch-summed CTC gradients reach norms of 1e13 and more)."""
+    rules: batch-summed CTC gradients reach norms of 1e13 and more).
+
+    The clips read the norm that ``clip_norm`` sets: the train steps set
+    the whole tree's on a TP mesh, whose ranks update their slices of the
+    params, as JAX's global view does; the elementwise rules run on the
+    slices as they are."""
     optim_type = optim_type.lower()
     if optim_type == "adam":
         tx = chain(scale_by_adam(), scale_by_learning_rate(learning_rate))
@@ -259,14 +266,30 @@ def build_optimizer(optim_type: str, learning_rate: ScalarOrSchedule,
     return chain(*parts)
 
 
+_norm = threading.local()
+
+
+@contextlib.contextmanager
+def clip_norm(fn: Callable[[Any], torch.Tensor]):
+    """Run the region with the norm clips reading fn(tree) (the train
+    steps: ``trainer.global_norm_safe`` of the whole tree on a TP mesh);
+    outside, a tree's own ``global_norm_safe``."""
+    prev = getattr(_norm, "fn", None)
+    _norm.fn = fn
+    try:
+        yield
+    finally:
+        _norm.fn = prev
+
+
 def _clip_by_global_norm_safe(max_norm: float) -> GradientTransformation:
     """Clip to max_norm by an overflow-proof global norm (optimizer.py:
     196-218): the stock clip squares in f32, reads inf on finite gradients
-    of |g| ~1e18, and would zero every update."""
+    of |g| ~1e18, and would zero every update. The norm is ``clip_norm``'s."""
     from wavenet_speech_tpu_torch.training.trainer import global_norm_safe
 
     def update(updates, state, params=None):
-        g = global_norm_safe(updates)
+        g = (getattr(_norm, "fn", None) or global_norm_safe)(updates)
         scale = torch.clamp(max_norm / torch.clamp(g, min=1e-30), max=1.0)
         return tree_map(lambda u: u * scale, updates), state
 

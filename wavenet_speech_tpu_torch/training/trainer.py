@@ -25,22 +25,31 @@ inputs, __graft_entry__.py:110-136, 213-234) each rank's step takes its
 (data, seq) shard of the batch (``parallel.shard_batch(mesh, batch,
 seq_keys=("signal",))``): under SP the models run with a halo exchange at
 every conv and the CTC sequence-sharded, and the loss terms are the global
-ones whose gradients are this rank's shares (``training/loss.py``). The
-param gradients are summed over every rank (one all-reduce of one flat
-buffer) before the skip guard, so the guard, the norm and the optimizer
-run on the same values on every rank: all ranks skip together and their
+ones whose gradients are this rank's shares (``training/loss.py``). Batch
+statistics (BatchNorm1d, ``batch_standardize``) are the global batch's
+(``parallel.collectives.batch_stats``). The param gradients are summed
+over the "data" and "seq" lines (one all-reduce of one flat buffer a
+line) before the skip guard, so the guard, the norm and the optimizer run
+on the same values on every rank: all ranks skip together and their
 params stay identical.
+
+On a mesh whose "model" axis is > 1 (TP), the state holds this rank's
+slices (``parallel.shard_params(mesh, params, model_parallel=True)``; the
+optimizer state follows): the differentiated function gathers the whole
+tree first (``parallel.gather_params``), so the gradients come back as
+slices; the guard reads the whole tree (the absmax a max over "model",
+a sharded leaf's squares summed over "model", a replicated leaf counted
+once), and so do the optimizer's norm clips (``optimizer.clip_norm``);
+the replicated leaves' gradients are the first "model" rank's on every
+rank of the line (``all_reduce_grads``). The step's numbers are one
+device's (``parallel/sharding.py``).
 
 The joint step trains either pair of ``facade.Model``: after the optimizer
 update it calls the base model's ``update_state`` (a no-op for WaveNet;
 ``facade.BatchNorm1d``'s running-statistics EMA for raw-ctcnet), as JAX's
-does. ``make_ctc_train_step`` trains one CTC network (RawCTCNet) alone.
-
-Not ported yet: tensor parallelism (a mesh whose "model" axis is > 1
-raises), and BatchNorm statistics over data-parallel ranks (a base with
-running statistics on a mesh of more than one rank raises; ROADMAP A12).
-The JAX options ``donate`` and ``scan_unroll`` have no meaning in an eager
-loop and are not taken.
+does. ``make_ctc_train_step`` trains one CTC network (RawCTCNet) alone, on
+a mesh too. The JAX options ``donate`` and ``scan_unroll`` have no meaning
+in an eager loop and are not taken.
 """
 from __future__ import annotations
 
@@ -52,13 +61,15 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from wavenet_speech_tpu_torch.ops.ctc import ctc_loss_per_seq
-from wavenet_speech_tpu_torch.parallel.collectives import all_reduce_sum
+from wavenet_speech_tpu_torch.parallel.collectives import (STAT_AXES, all_reduce,
+                                                           batch_stats, broadcast)
 from wavenet_speech_tpu_torch.parallel.halo import seq_axis
 from wavenet_speech_tpu_torch.parallel.mesh import Mesh
+from wavenet_speech_tpu_torch.parallel.sharding import (gather_params, param_shardings,
+                                                        tp_sharded)
 from wavenet_speech_tpu_torch.training.loss import JointLoss
 from wavenet_speech_tpu_torch.training.optimizer import (GradientTransformation,
-                                                         apply_updates)
+                                                         apply_updates, clip_norm)
 from wavenet_speech_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                                  tree_unflatten)
 
@@ -87,22 +98,39 @@ def param_tree(base_model: nn.Module, ctc_model: nn.Module):
             "ctc": {k: v.detach().clone() for k, v in ctc_model.state_dict().items()}}
 
 
-def all_finite(tree) -> torch.Tensor:
+def all_finite(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Tensor:
     """True iff every element of every leaf is finite (trainer.py:50-61).
     The skip guard's predicate: the finiteness of a naive global norm is
-    false on finite gradients past ~1.8e19, whose squares overflow f32."""
-    return torch.stack([torch.isfinite(l).all() for l in tree_leaves(tree)]).all()
+    false on finite gradients past ~1.8e19, whose squares overflow f32.
+    With a TP mesh and the tree's specs, the whole tree's: this rank's
+    slices and every other rank's of its "model" line."""
+    ok = torch.stack([torch.isfinite(l).all() for l in tree_leaves(tree)]).all()
+    if tp_sharded(mesh, specs):
+        ok = all_reduce(ok.to(torch.int32), mesh, "model", "min").bool()
+    return ok
 
 
-def global_norm_safe(tree) -> torch.Tensor:
+def global_norm_safe(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Tensor:
     """Overflow-proof global L2 norm (trainer.py:64-73): the leaves are
     scaled by the global absmax before squaring. 0 for an all-zero tree, NaN
     for a tree holding an inf, and 0 for one holding a NaN, as in JAX (whose
-    docstring says non-finite; the skip guard reads all_finite, not this)."""
+    docstring says non-finite; the skip guard reads all_finite, not this).
+    With a TP mesh and the tree's specs, the whole tree's norm: the absmax
+    a max over "model", a sharded leaf's squares summed over "model", a
+    replicated leaf's counted once."""
     leaves = tree_leaves(tree)
     absmax = torch.stack([l.abs().max() for l in leaves]).max()
+    tp = tp_sharded(mesh, specs)
+    if tp:
+        absmax = all_reduce(absmax, mesh, "model", "max")
     scale = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
-    ssq = sum(torch.sum((l / scale) ** 2) for l in leaves)
+    squares = [torch.sum((l / scale) ** 2) for l in leaves]
+    if not tp:
+        ssq = sum(squares)
+    else:
+        split, zero = tree_leaves(specs), torch.zeros((), device=absmax.device)
+        ssq = all_reduce(sum((q for q, s in zip(squares, split) if s is not None), zero),
+                         mesh, "model") + sum(q for q, s in zip(squares, split) if s is None)
     return torch.where(absmax > 0, scale * torch.sqrt(ssq), 0.0)
 
 
@@ -118,28 +146,60 @@ def _cast(tree, dtype):
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
-def _check_mesh(mesh: Optional[Mesh]) -> None:
-    if mesh is not None and mesh.axis_size("model") > 1:
-        raise NotImplementedError("tensor parallelism over the 'model' axis is not "
-                                  "ported (ROADMAP A12)")
-
-
 def _sharded(mesh: Optional[Mesh]):
-    """The SP context where the mesh shards time, else nothing."""
-    if mesh is not None and mesh.axis_size("seq") > 1:
-        return seq_axis(mesh)
-    return contextlib.nullcontext()
+    """The region of a step on a mesh: sequence-sharded where the mesh
+    shards time, its batch statistics the global batch's."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(batch_stats(mesh))
+    if mesh.axis_size("seq") > 1:
+        stack.enter_context(seq_axis(mesh))
+    return stack
 
 
-def all_reduce_grads(grads, mesh: Optional[Mesh]):
-    """The gradient tree summed over every rank of the mesh, by one
-    all-reduce of one flat buffer."""
-    if mesh is None or mesh.size == 1:
+def all_reduce_grads(grads, mesh: Optional[Mesh], specs=None):
+    """The gradient tree summed over the "data" and "seq" lines (the whole
+    mesh where "model" is 1), by one all-reduce of one flat buffer a line.
+    Not over "model": on a TP mesh its ranks hold different slices of
+    equal shape. There (specs given) the replicated leaves' gradients are
+    then the first "model" rank's on every rank of its line: each rank
+    computed them itself, and two processes need not sum in the same order
+    (a CPU library may pick its reduction by a buffer's alignment), so the
+    copies of a replicated leaf would drift apart."""
+    if mesh is None:
         return grads
     leaves = tree_leaves(grads)
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in leaves]), mesh)
-    parts = torch.split(flat, [g.numel() for g in leaves])
-    return tree_unflatten(grads, [p.view_as(g) for p, g in zip(parts, leaves)])
+    if mesh.axis_size("data") * mesh.axis_size("seq") > 1:
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in leaves]), mesh, STAT_AXES)
+        leaves = [p.view_as(g) for p, g in zip(torch.split(flat, [g.numel() for g in leaves]),
+                                               leaves)]
+    if tp_sharded(mesh, specs):
+        idx = [j for j, s in enumerate(tree_leaves(specs)) if s is None]
+        if idx:
+            flat = broadcast(torch.cat([leaves[j].reshape(-1) for j in idx]), mesh, "model", 0)
+            for j, part in zip(idx, torch.split(flat, [leaves[j].numel() for j in idx])):
+                leaves[j] = part.view_as(leaves[j])
+    return tree_unflatten(grads, leaves)
+
+
+def _tp_specs(mesh: Optional[Mesh], whole_params):
+    """The specs of a step's params on a TP mesh (``param_shardings`` of
+    the whole tree, e.g. the modules' state dicts), None elsewhere."""
+    if mesh is None or mesh.axis_size("model") == 1:
+        return None
+    return param_shardings(mesh, whole_params, model_parallel=True)
+
+
+def _in_order(params, specs):
+    """specs keyed and ordered as params (None stays None)."""
+    return None if specs is None else tree_map(lambda _, sp: sp, params, specs)
+
+
+def _whole(params, mesh: Optional[Mesh], specs):
+    """The whole params tree from this rank's slices on a TP mesh
+    (differentiable), else params."""
+    return gather_params(mesh, params, specs) if tp_sharded(mesh, specs) else params
 
 
 def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
@@ -167,17 +227,19 @@ def _forward_losses(base_model, ctc_model, loss: JointLoss, params, batch,
     return total, (torch.zeros((), device=ctc.device) if xe is None else xe), ctc
 
 
-def _guarded_update(state: TrainState, total, grads, tx: GradientTransformation):
+def _guarded_update(state: TrainState, total, grads, tx: GradientTransformation,
+                    mesh: Optional[Mesh] = None, specs=None):
     """The skip guard and the optimizer update (trainer.py:168-182):
     all_finite and global_norm_safe, not the finiteness of a naive norm,
     which overflows f32 on finite gradients past ~1.8e19 and would freeze
     training. A step whose loss or gradients hold a non-finite value leaves
-    params and optimizer state as they were. Returns (params, opt_state,
-    grad_norm, ok)."""
-    gnorm = global_norm_safe(grads)
-    ok = torch.isfinite(total) & all_finite(grads)
+    params and optimizer state as they were. On a TP mesh both read the
+    whole tree. Returns (params, opt_state, grad_norm, ok)."""
+    gnorm = global_norm_safe(grads, mesh, specs)
+    ok = torch.isfinite(total) & all_finite(grads, mesh, specs)
     grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
-    updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
+    with clip_norm(lambda tree: global_norm_safe(tree, mesh, specs)):
+        updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
     updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
     opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
                          state.opt_state)
@@ -244,27 +306,28 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
     multi_same_batch, else on K batches stacked on a leading axis; the
     metrics then come back stacked (K,).
 
-    mesh: run as one rank of a DP/SP mesh, on this rank's shard of each
-    batch, the gradients summed over every rank (see the module
-    docstring); every rank must call the step with its shard.
+    mesh: run as one rank of a (data, model, seq) mesh, on this rank's
+    shard of each batch (see the module docstring): the state's params
+    are whole, or on a TP mesh this rank's slices; every rank must call
+    the step with its shard.
 
     Returns step_fn(state, batch) -> (state, metrics)."""
     loss = loss or JointLoss("joint")
-    _check_mesh(mesh)
-    if mesh is not None and mesh.size > 1 and getattr(base_model, "running_statistics", False):
-        raise NotImplementedError("BatchNorm running statistics over data-parallel ranks "
-                                  "are not ported (ROADMAP A12)")
+    specs = _tp_specs(mesh, {"base": base_model.state_dict(), "ctc": ctc_model.state_dict()})
 
     def step_fn(state: TrainState, batch) -> tuple:
+        sp = _in_order(state.params, specs)
         leaves, params = _leaves_with_grad(state.params)
-        total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params, batch,
+        total, xe, ctc = _forward_losses(base_model, ctc_model, loss,
+                                         _whole(params, mesh, sp), batch,
                                          logit_length_fn, compute_dtype, mesh)
-        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh)
-        new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx)
+        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
+        new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx, mesh, sp)
         # non-gradient state (BatchNorm's running statistics), from the
         # pre-update leaves and the uncast signal, on a skipped step too
-        new_params = dict(new_params, base=base_model.update_state(
-            state.params["base"], new_params["base"], batch["signal"]))
+        with _sharded(mesh):
+            new_params = dict(new_params, base=base_model.update_state(
+                state.params["base"], new_params["base"], batch["signal"]))
         metrics = {"xe_loss": xe.detach(), "ctc_loss": ctc.detach(),
                    "total_loss": total.detach(), "grad_norm": gnorm,
                    "skipped_nonfinite": (~ok).to(torch.int32)}
@@ -277,7 +340,7 @@ def make_ctc_train_step(model: nn.Module, tx: GradientTransformation,
                         average_per_logit: bool = True, use_logit_lengths: bool = False,
                         length_fn: Optional[Callable] = None, compute_dtype=None,
                         preprocess: Optional[Callable] = None, steps_per_call: int = 1,
-                        multi_same_batch: bool = False):
+                        multi_same_batch: bool = False, mesh: Optional[Mesh] = None):
     """The CTC-only step of one network, e.g. RawCTCNet (trainer.py:
     199-274), over its params {name: tensor} (its state dict's keys).
     batch: "signal" (B, L, C), "labels", "label_lengths" and, with
@@ -289,28 +352,34 @@ def make_ctc_train_step(model: nn.Module, tx: GradientTransformation,
     compute_dtype casts params and signal inside the differentiated
     function, as in make_joint_train_step; preprocess maps the signal in
     its input dtype before that cast (e.g. ``ops.norm.batch_standardize``
-    for raw pico-amp signals). The skip guard, steps_per_call and
-    multi_same_batch are the joint step's. Returns
+    for raw pico-amp signals; on a mesh its statistics are the global
+    batch's). The skip guard, steps_per_call and multi_same_batch are the
+    joint step's.
+
+    mesh: as the joint step's. Under SP (seq > 1) the network runs
+    sequence-sharded and the CTC is ``parallel.ctc_loss_seq_sharded`` on
+    the local logits; T (average_per_logit, the default logit lengths) is
+    the global frame count, the local one times the seq axis. Returns
     step_fn(state, batch) -> (state, metrics)."""
+    loss = JointLoss("ctc", averaged=average_per_logit)
+    specs = _tp_specs(mesh, model.state_dict())
 
     def step_fn(state: TrainState, batch) -> tuple:
+        sp = _in_order(state.params, specs)
         leaves, params = _leaves_with_grad(state.params)
-        signal = batch["signal"]
-        if preprocess is not None:
-            signal = preprocess(signal)
-        logits = functional_call(model, _cast(params, compute_dtype),
-                                 (_cast(signal, compute_dtype),))
-        B, T = logits.shape[:2]
+        params = _cast(_whole(params, mesh, sp), compute_dtype)
+        with _sharded(mesh):
+            signal = batch["signal"]
+            if preprocess is not None:
+                signal = preprocess(signal)
+            logits = functional_call(model, params, (_cast(signal, compute_dtype),))
+        kwargs = {} if mesh is None else {"mesh": mesh}
         if use_logit_lengths and length_fn is not None:
-            logit_lengths = length_fn(batch["signal_lengths"])
-        else:
-            logit_lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
-        total = ctc_loss_per_seq(logits, logit_lengths, batch["labels"],
-                                 batch["label_lengths"]).sum()
-        if average_per_logit:
-            total = total / T
-        new_params, opt_state, gnorm, ok = _guarded_update(
-            state, total, _grads(total, state.params, leaves), tx)
+            kwargs["logit_lengths"] = length_fn(batch["signal_lengths"])
+        _, total = loss.calculate(None, None, logits, batch["labels"],
+                                  batch["label_lengths"], **kwargs)
+        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
+        new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx, mesh, sp)
         metrics = {"ctc_loss": total.detach(), "total_loss": total.detach(),
                    "grad_norm": gnorm, "skipped_nonfinite": (~ok).to(torch.int32)}
         return TrainState(new_params, opt_state, state.step + 1), metrics
@@ -324,16 +393,18 @@ def make_eval_step(base_model: nn.Module, ctc_model: nn.Module,
                    mesh: Optional[Mesh] = None):
     """The validation step (trainer.py:277-306): the train step's metrics
     and weighting, no update, in compute_dtype as the train step; with a
-    mesh, on this rank's shard, the global metrics on every rank. Returns
+    mesh, on this rank's shard (params whole, or on a TP mesh this rank's
+    slices), the global metrics on every rank. Returns
     eval_fn(params, batch) -> metrics."""
     loss = loss or JointLoss("joint")
-    _check_mesh(mesh)
+    specs = _tp_specs(mesh, {"base": base_model.state_dict(), "ctc": ctc_model.state_dict()})
 
     def eval_fn(params, batch) -> Metrics:
         batch = _batch_to(batch, tree_leaves(params)[0].device)
         with torch.no_grad():
-            total, xe, ctc = _forward_losses(base_model, ctc_model, loss, params,
-                                             batch, logit_length_fn, compute_dtype, mesh)
+            total, xe, ctc = _forward_losses(
+                base_model, ctc_model, loss, _whole(params, mesh, _in_order(params, specs)),
+                batch, logit_length_fn, compute_dtype, mesh)
         return {"xe_loss": xe, "ctc_loss": ctc, "total_loss": total}
 
     return eval_fn
