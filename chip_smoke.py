@@ -205,6 +205,32 @@ from a seed; B=8 one-hot reads of L=4505):
      B6 on every rank: equal to one B6 call to the bit; (e) the TP step's
      ms, its param gather, gradient all-reduce and guard reductions, and
      the decoders' ms beside one device's.
+ 14. drives pretraining, generation and the autoregressive decoders, with
+     RawSignalGenerator reading a genome of 8 seeded random contigs (written
+     with h5py, else served by the stand-in h5py module of phase 11). (a)
+     the main path: pretrain_ctc on build_posenc_encoder(scale=1) (512
+     features, 30 non-causal blocks of kernel width 3, out_dim 1024,
+     positions; 90.3 M parameters) for 20 Adamax steps in float32 on
+     B=8 reads of 100-200 bases at 800 Hz (signals padded to 1024 samples,
+     1026 logit frames, labels to 200): B1 and B2 once a step; step 1's
+     B1/B2 against their plain loops on the step's own inputs (and the CTC
+     against F.ctc_loss); a second run from the same seeds equal to the bit;
+     ctc_loss_flat (B1 once) equal to ctc_loss; the step's ms, the
+     generator's ms a batch, the peak memory, the loss curve. (b)
+     models.fast_wavenet.generate on the bench WaveNet (256 levels, 30
+     causal blocks, res_w scaled as in 4): B=8 one-hot primes of L0=4505
+     (B4 once a block), held against its plain version at the priming's
+     shapes, then 512 argmax steps whose probabilities match one parallel
+     forward over prime + generated levels (GEN_RTOL, GEN_ATOL; the levels
+     its argmax but at near-ties); the priming's ms, the µs a generated
+     sample, the CUDA kernels a step. (c) at scale 1, on the encodings of one
+     RawSignalGenerator batch: EncDec's ByteNetDecoder.generate (32
+     channels, max_time 40) and the RNN pair's RNNByteNetDecoder.unfold
+     (hidden 256, 3 layers, max_time 100), each against the same decoder on
+     the CPU (labels and lengths equal under the top-2 margin rule, the
+     logits within DEC_RTOL, DEC_ATOL), then BeamSearchDecoder(beam_width=5)
+     on their logits, the card's hypotheses equal to the CPU's; ms a
+     decoder step and a beam batch.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -240,6 +266,7 @@ import torch.nn.functional as F
 
 from wavenet_speech_tpu_torch import cli
 from wavenet_speech_tpu_torch.data.common import Batch, MuLawQuantizer
+from wavenet_speech_tpu_torch.data.raw_signal import RawSignalGenerator
 from wavenet_speech_tpu_torch.data.gaussian_kmer import DEFAULT_KMER_MODEL, kmer_ids
 from wavenet_speech_tpu_torch.data.hdf5 import ecoli_worker_fn
 from wavenet_speech_tpu_torch.data.prefetch import FIELDS, batch_to_device
@@ -248,18 +275,20 @@ from wavenet_speech_tpu_torch.decoding.alignment import batch_identity
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_init, beam_search_kernel, beam_search_ref, ctc_beam_search)
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
+from wavenet_speech_tpu_torch.decoding.labelsync import BeamSearchDecoder
 from wavenet_speech_tpu_torch.decoding.streaming import StreamingBeamBatch
 from wavenet_speech_tpu_torch.examples import gaussian_eval
 from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
 from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _default_margin,
                                                 chunked_logits, chunked_logits_batch)
-from wavenet_speech_tpu_torch.models import RawCTCNet, blocks
+from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, blocks, fast_wavenet
 from wavenet_speech_tpu_torch.native import ctc_beam as native_beam
 from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
+from wavenet_speech_tpu_torch.ops.conv import causal_conv1d
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
-                                              ctc_loss, ctc_loss_per_seq)
+                                              ctc_loss, ctc_loss_flat, ctc_loss_per_seq)
 from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
@@ -276,7 +305,10 @@ from wavenet_speech_tpu_torch.training import (JointLoss, TrainState, build_opti
                                                param_tree, trainer)
 from wavenet_speech_tpu_torch.training.checkpoint import (restore_checkpoint, save_checkpoint,
                                                           wait_for_async_saves)
+from wavenet_speech_tpu_torch.training import pretrain
 from wavenet_speech_tpu_torch.training.diagnostics import dump_anomaly
+from wavenet_speech_tpu_torch.training.pretrain import (build_encdec, build_posenc_encoder,
+                                                        build_rnn_decoder_pair, pretrain_ctc)
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
                                                        all_reduce_grads, global_norm_safe,
                                                        make_ctc_train_step)
@@ -2872,19 +2904,12 @@ def make_reads(seed, n_reads, n_events):
             for _ in range(n_reads)]
 
 
-class ReadSetFile:
-    """What the port's ecoli_worker_fn and QueueLoader use of an h5py.File
-    opened for reading (keys(), [] and close()), over reads in memory in the
-    /read_i/{quantized, raw/positions, reference} layout."""
+class H5Groups:
+    """What the port's HDF5 readers use of an h5py.File opened for reading
+    (keys(), [] and close()), over nested dicts of arrays in memory."""
 
-    def __init__(self, reads):
-        self.groups = {}
-        for i, (bases, positions, chunks) in enumerate(reads):
-            quantized = np.empty(len(chunks), dtype=object)
-            for j, c in enumerate(chunks):
-                quantized[j] = c
-            self.groups[f"read_{i}"] = {"quantized": quantized,
-                                        "raw": {"positions": positions}, "reference": bases}
+    def __init__(self, groups):
+        self.groups = groups
 
     def keys(self):
         return self.groups.keys()
@@ -2896,28 +2921,31 @@ class ReadSetFile:
         pass
 
 
-@contextlib.contextmanager
-def reads_file(path, reads):
-    """A file at path holding reads in the layout of
-    tools/make_synthetic_reads.py, for the port's own ``h5py.File`` calls:
-    written with h5py where it imports; else, as on a machine without h5py,
-    a stand-in h5py module whose File(path) serves the reads from memory
-    sits in sys.modules until the block ends. Yields which of the two ran."""
+def read_groups(reads):
+    """Reads in the /read_i/{quantized, raw/positions, reference} layout of
+    tools/make_synthetic_reads.py."""
+    groups = {}
+    for i, (bases, positions, chunks) in enumerate(reads):
+        quantized = np.empty(len(chunks), dtype=object)
+        for j, c in enumerate(chunks):
+            quantized[j] = c
+        groups[f"read_{i}"] = {"quantized": quantized, "raw": {"positions": positions},
+                               "reference": bases}
+    return groups
+
+
+def h5py_or_none():
     try:
-        h5py = importlib.import_module("h5py")
+        return importlib.import_module("h5py")
     except ImportError:
-        h5py = None
-    if h5py is not None:
-        with h5py.File(path, "w") as f:
-            for i, (bases, positions, chunks) in enumerate(reads):
-                g = f.create_group(f"read_{i}")
-                g.create_dataset("quantized", (len(chunks),),
-                                 dtype=h5py.vlen_dtype(np.dtype("int64")))[:] = chunks
-                g.create_group("raw").create_dataset("positions", data=positions)
-                g.create_dataset("reference", data=bases)
-        yield f"h5py {h5py.__version__}: a file written"
-        return
-    served, stand_in = ReadSetFile(reads), types.ModuleType("h5py")
+        return None
+
+
+@contextlib.contextmanager
+def stand_in_h5py(path, groups):
+    """A stand-in h5py module whose File(path) serves groups from memory
+    sits in sys.modules until the block ends (a machine without h5py)."""
+    served, stand_in = H5Groups(groups), types.ModuleType("h5py")
 
     def open_file(name, mode="r"):
         if str(name) != str(path) or mode != "r":
@@ -2927,9 +2955,30 @@ def reads_file(path, reads):
     stand_in.File = open_file
     sys.modules["h5py"] = stand_in
     try:
-        yield "no h5py here: a stand-in h5py module serving the reads from memory"
+        yield "no h5py here: a stand-in h5py module serving the data from memory"
     finally:
         del sys.modules["h5py"]
+
+
+@contextlib.contextmanager
+def reads_file(path, reads):
+    """A file at path holding reads in the layout of
+    tools/make_synthetic_reads.py, for the port's own ``h5py.File`` calls:
+    written with h5py where it imports, else served by ``stand_in_h5py``.
+    Yields which of the two ran."""
+    h5py = h5py_or_none()
+    if h5py is None:
+        with stand_in_h5py(path, read_groups(reads)) as how:
+            yield how
+        return
+    with h5py.File(path, "w") as f:
+        for i, (bases, positions, chunks) in enumerate(reads):
+            g = f.create_group(f"read_{i}")
+            g.create_dataset("quantized", (len(chunks),),
+                             dtype=h5py.vlen_dtype(np.dtype("int64")))[:] = chunks
+            g.create_group("raw").create_dataset("positions", data=positions)
+            g.create_dataset("reference", data=bases)
+    yield f"h5py {h5py.__version__}: a file written"
 
 
 def rebuild_fixture(tmp):
@@ -4233,6 +4282,352 @@ def run_multi(dev, card):
             "decode": {n: r0["decode"][n]["launches"] for n in ("batch", "seq")}}
 
 
+# ---- 14. pretraining, fast-WaveNet generation, the autoregressive decoders -----
+
+AR_READS = (100, 201)             # RawSignalGenerator: read lengths uniform in [100, 200]
+AR_PAD_TO, AR_LABELS_PAD_TO = 1024, 200   # >= 12 sd above the longest read's mean 650 samples
+AR_CONTIGS = 8                    # the stand-in genome: seeded random contigs
+AR_CONTIG_BASES = (20_000, 60_000)
+PRETRAIN_STEPS = 20
+GEN_STEPS = 512
+# the generated steps' probabilities against the parallel forward: JAX's
+# own test's tolerance (tests/test_fast_wavenet.py), |p_gen - p_par| <=
+# rtol p_par + atol; where the argmax of the two differs, the parallel
+# forward's top-2 margin lies below twice that bound (the margin rule)
+GEN_RTOL, GEN_ATOL = 1e-4, 1e-5
+# the decoders on the card against the same weights on the CPU: logits
+# within rtol |cpu| + atol max|cpu| while the label sequences agree; where
+# they part, the first difference falls on a step whose top-2 margin in
+# the CPU's logits is below twice that bound
+DEC_RTOL, DEC_ATOL = 1e-4, 1e-5
+ENCDEC_MAX_TIME, RNN_MAX_TIME, LABELSYNC_WIDTH = 40, 100, 5
+
+
+@contextlib.contextmanager
+def genome_file(path, seed):
+    """A reference genome of AR_CONTIGS seeded random contigs (bases 1..4)
+    in RawSignalGenerator's /<contig>/contig layout: written with h5py where
+    it imports, else served by ``stand_in_h5py``. Yields which ran."""
+    rng = np.random.default_rng(seed)
+    contigs = {f"contig_{i}": rng.integers(1, 5, size=int(rng.integers(*AR_CONTIG_BASES)))
+               .astype(np.int8) for i in range(AR_CONTIGS)}
+    h5py = h5py_or_none()
+    if h5py is None:
+        with stand_in_h5py(path, {k: {"contig": v} for k, v in contigs.items()}) as how:
+            yield how
+        return
+    with h5py.File(path, "w") as f:
+        for k, v in contigs.items():
+            f.create_group(k).create_dataset("contig", data=v)
+    yield f"h5py {h5py.__version__}: a file written"
+
+
+def raw_signal_generator(path, seed):
+    return RawSignalGenerator(None, str(path), AR_READS, sample_rate=800.0, batch_size=B,
+                              pad_to=AR_PAD_TO, labels_pad_to=AR_LABELS_PAD_TO, seed=seed)
+
+
+def top2_margin_rule(label, ref_logits, ref_labels, got_labels, rtol, atol):
+    """Rows whose label sequences differ; each row's first difference must
+    fall on a step whose top-2 margin in ref_logits is below twice the
+    tolerance rtol |top| + atol max|ref_logits|. Returns {row: step}."""
+    ref_logits = ref_logits.float().cpu()
+    scale = float(ref_logits.abs().max())
+    rows = {}
+    for b in torch.nonzero((ref_labels.cpu() != got_labels.cpu()).any(dim=1)).flatten().tolist():
+        t = int(torch.nonzero(ref_labels[b].cpu() != got_labels[b].cpu())[0])
+        top2 = torch.topk(ref_logits[b, t], 2).values
+        bound = 2 * (rtol * float(top2.abs().max()) + atol * scale)
+        if not float(top2[0] - top2[1]) < bound:
+            raise AssertionError(f"{label}: row {b} parts at step {t} with a top-2 margin "
+                                 f"{float(top2[0] - top2[1]):.3e} >= {bound:.3e}")
+        rows[b] = t
+    return rows
+
+
+def pretrain_phase(dev, path, card):
+    """(a) pretrain_ctc on build_posenc_encoder(scale=1) and RawSignalGenerator
+    batches: the main path's launches (B1, B2 once a step), step 1's B1/B2
+    against their plain loops on the step's own inputs, two runs from one
+    seed equal to the bit, ctc_loss_flat (B1) equal to ctc_loss; the step's
+    ms, the generator's ms a batch, the peak memory, the loss curve."""
+    encoder = build_posenc_encoder(scale=1, device=dev)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    first = raw_signal_generator(path, SEED).fetch()
+    calls = []   # run 1's B1 calls (args, outputs): step 1's is held below
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for run in range(2):
+        gen = raw_signal_generator(path, SEED)
+        try:
+            with mock.patch.object(ctc_scan, "ctc_fwd", Recorder(ctc_fwd, calls)) \
+                    if run == 0 else contextlib.nullcontext():
+                reset_counts()
+                t0 = time.perf_counter()
+                state, losses = pretrain_ctc(encoder, gen, PRETRAIN_STEPS)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = {k: v for k, v in read_counts().items() if v}
+        finally:
+            gen.close()
+        runs.append((state, losses, counts, secs))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (s1, l1, launches, secs), (s2, l2, counts2, _) = runs
+    want = {"ctc_alpha": PRETRAIN_STEPS, "ctc_beta": PRETRAIN_STEPS}
+    if launches != want or counts2 != want:
+        raise AssertionError(f"(a) pretrain_ctc launched {launches} / {counts2}, not {want}")
+    bit = l1 == l2 and all(torch.equal(a, b) for a, b in
+                           zip(tree_leaves(s1.params), tree_leaves(s2.params)))
+    if not bit:
+        raise AssertionError(f"(a) two pretrain_ctc runs from one seed differ: losses {l1} "
+                             f"vs {l2}, params {rel_err(tree_leaves(s2.params), tree_leaves(s1.params)):.3e}")
+    # at Adamax 2e-3 on raw pico-amps the first update overshoots (the loss
+    # jumps ~10x at step 2, as the reference's lr does on phase 13's pair);
+    # training then brings it down
+    if not all(math.isfinite(x) for x in l1) or not sum(l1[-5:]) < sum(l1[1:6]):
+        raise AssertionError(f"(a) the loss did not fall after the first update: {l1}")
+    # step 1's inputs: the init's forward on the first batch (the recorded
+    # step-1 B1 input must be these bits)
+    params0 = pretrain._init_params(encoder)
+    batch = batch_to_device(first, dev)
+    with torch.no_grad():
+        logits = torch.func.functional_call(encoder, params0, (batch["signal"],))
+    ext, allow = _extend_labels(batch["labels"], 0)
+    lp_ext = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous()
+    skip = torch.where(allow, 0.0, NEG)
+    if not torch.equal(calls[0][0][0], lp_ext):
+        raise AssertionError("(a) step 1's recorded B1 input differs from the init's forward")
+    T, Bx, J = lp_ext.shape
+    log(f"(a) pretrain_ctc step 1 at B={Bx} T={T} J={J}: geometry (R, C, threads, D) "
+        f"{ctc_scan.ctc_geometry(J, 1, Bx, ctc_scan._sms(dev))} (B1)")
+    b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
+    lens = torch.full((Bx,), T, dtype=torch.int32, device=dev)
+    reset_counts()
+    flat = ctc_loss_flat(logits, lens.cpu().numpy(), first.flat_labels, first.label_lengths)
+    flat_counts = {k: v for k, v in read_counts().items() if v}
+    dense = ctc_loss(logits, lens, batch["labels"], batch["label_lengths"])
+    if flat_counts != {"ctc_alpha": 1} or not torch.equal(flat, dense):
+        raise AssertionError(f"(a) ctc_loss_flat {float(flat)} (launches {flat_counts}) != "
+                             f"ctc_loss {float(dense)}")
+    # the step's time and the generator's
+    tx = build_optimizer("adamax", 2e-3)
+    step = make_ctc_train_step(encoder, tx)
+    box = [TrainState.create(params0, tx)]
+
+    def one_step():
+        box[0], m = step(box[0], batch)
+        return m
+
+    step_ms = cuda_ms(one_step, 5)
+    gen = raw_signal_generator(path, SEED + 1)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            gen.fetch()
+        gen_ms = (time.perf_counter() - t0) * 1e3 / 10
+    finally:
+        gen.close()
+    log(f"(a) PosEnc pretrain_ctc ({encoder.num_features} features, {len(encoder.layers)} "
+        f"blocks k=3, out_dim {encoder.out1.w.shape[0]}, positions; "
+        f"{n_params} parameters), RawSignalGenerator B={B}, reads {AR_READS[0]}-"
+        f"{AR_READS[1] - 1} bases at 800 Hz, pad_to {AR_PAD_TO}, labels_pad_to "
+        f"{AR_LABELS_PAD_TO}, Adamax 2e-3, float32: {PRETRAIN_STEPS} steps in {secs:.1f} s, "
+        f"launches {launches}; two runs from one seed equal to the bit (losses, params); "
+        f"ctc_loss_flat equal to ctc_loss (B1 once); loss curve "
+        f"{[round(x, 4) for x in l1]}")
+    log(f"(a) pretrain step_ms={step_ms:.3f} samples_per_s={Bx * AR_PAD_TO / step_ms * 1e3:.0f} "
+        f"(CUDA events, mean of 5 after a warm step) generator_ms={gen_ms:.3f} a batch "
+        f"(host clock, mean of 10) peak memory {peak:.2f} GiB; card {card}")
+    shape = f"B={Bx} T={T} J={J}"
+    return dict(b1=b1, b2=b2, shape=shape, launches=launches, flat_launches=flat_counts,
+                step_ms=step_ms, gen_ms=gen_ms, peak=peak, losses=l1)
+
+
+def bench_wavenet(dev):
+    """bench.py:105-110's WaveNet (256 levels in and out, 30 causal blocks
+    d = 1..512 x 3), random weights from SEED, res_w x 1/sqrt(2) as in
+    phase 4."""
+    net = WaveNet(LEVELS, 2, [(LEVELS, LEVELS, 2, d) for d in WAVENET_DILS], LEVELS,
+                  softmax=False, device=dev)
+    net.reset_parameters(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for blk in net.stack.blocks:
+            blk.res_w.mul_(0.5 ** 0.5)
+    return net.eval()
+
+
+def cuda_kernels_a_step(fn, steps):
+    """CUDA kernels launched a generated step: torch.profiler's kernel
+    count of fn(steps) less fn(0)'s (the priming), over steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for n in (0, steps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(n)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA"))
+    return (counts[1] - counts[0]) / steps
+
+
+def generation_phase(dev, card):
+    """(b) fast_wavenet.generate on the bench WaveNet: B4 once a block in
+    the priming (the main path's launches), held against its plain version
+    at the priming's shapes; GEN_STEPS argmax steps whose probabilities
+    match one parallel forward over prime + generated levels; the priming's
+    ms, the µs a generated sample, the launches a step."""
+    net = bench_wavenet(dev)
+    prime = torch.from_numpy(onehot_reads(np.random.default_rng(SEED + 14), B, L, LEVELS)).to(dev)
+    with torch.no_grad():
+        reset_counts()
+        levels, probs = fast_wavenet.generate(net, prime, GEN_STEPS)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+        if launches != {"fused_gated_block": len(WAVENET_DILS)}:
+            raise AssertionError(f"(b) generate launched {launches}")
+        if levels.shape != (B, GEN_STEPS) or not torch.isfinite(probs).all() or \
+                not ((levels >= 0) & (levels < LEVELS)).all():
+            raise AssertionError("(b) generated levels or probabilities out of shape or range")
+        # B4 at the priming's shapes: each block's input on the plain path
+        x, err = causal_conv1d(prime, net.entry.w, net.entry.b), 0.0
+        for blk in net.stack.blocks:
+            a = (blk.gate_w, blk.gate_b, blk.out_w[0], blk.out_b, blk.res_w, blk.res_b)
+            got = fused_gated_block(x, *a, blk.dilation)
+            want = fused_gated_block_ref(x, *a, blk.dilation)
+            err = max(err, hold_b4(blk.dilation, got, want)[0])
+            x = want[0]
+        # the parallel forward (B4) over prime + generated levels
+        full = torch.cat([prime, F.one_hot(levels, LEVELS).float()], dim=1)
+        par = torch.softmax(net(full), dim=-1)[:, L - 1:-1]
+        diff = (probs - par).abs()
+        bad = int((diff > GEN_RTOL * par + GEN_ATOL).sum())
+        if bad:
+            raise AssertionError(f"(b) {bad} generated probabilities beyond rtol {GEN_RTOL}, "
+                                 f"atol {GEN_ATOL} of the parallel forward; max "
+                                 f"{float(diff.max()):.3e}")
+        parted = top2_margin_rule("(b) generated levels against the parallel argmax", par,
+                                  par.argmax(-1), levels, GEN_RTOL, GEN_ATOL / float(par.max()))
+        prime_ms, _ = host_ms(lambda: fast_wavenet.generate(net, prime, 0), 3)
+        total_ms, _ = host_ms(lambda: fast_wavenet.generate(net, prime, GEN_STEPS), 1)
+        per_step = cuda_kernels_a_step(lambda n: fast_wavenet.generate(net, prime, n), 16)
+    step_ms = (total_ms - prime_ms) / GEN_STEPS
+    log(f"(b) fast-WaveNet on the bench WaveNet ({LEVELS} levels, {len(WAVENET_DILS)} "
+        f"blocks; res_w scaled), B={B} primes of L0={L}: launches {launches}; B4 at the "
+        f"priming's {len(WAVENET_DILS)} blocks within "
+        f"rtol {B4_RTOL}, atol {B4_ATOL} x max|plain|, max_abs_err {err:.3e}; {GEN_STEPS} "
+        f"argmax steps' probabilities within rtol {GEN_RTOL}, atol {GEN_ATOL} of the parallel "
+        f"forward over prime + generated (max diff {float(diff.max()):.3e}); levels equal "
+        f"to its argmax but {len(parted)} rows parting at near-ties {parted}")
+    log(f"(b) priming_ms={prime_ms:.3f} (host clock, synchronised, mean of 3) "
+        f"step_ms={step_ms:.3f} us_per_sample={step_ms / B * 1e3:.2f} (({total_ms:.1f} ms "
+        f"for {GEN_STEPS} steps - the priming) / steps / B) CUDA kernels a step "
+        f"{per_step:.1f} (torch.profiler); card {card}")
+    return dict(launches=launches, err=err, prime_ms=prime_ms, step_ms=step_ms,
+                us_per_sample=step_ms / B * 1e3, kernels_per_step=per_step)
+
+
+def decoder_on_both(label, decode, decoder, enc):
+    """decode(decoder, enc) on the card and on a CPU copy of the decoder
+    with the same weights and encodings; the label sequences and lengths
+    equal under the margin rule, the logits within DEC_RTOL/DEC_ATOL while
+    the labels agree. Returns (card logits, ms a step)."""
+    cpu = copy.deepcopy(decoder).cpu()
+    logits, lengths = decode(decoder, enc)
+    ref, ref_lengths = decode(cpu, enc.cpu())
+    labels, ref_labels = logits.argmax(-1).cpu(), ref.argmax(-1)
+    parted = top2_margin_rule(label, ref, ref_labels, labels, DEC_RTOL, DEC_ATOL)
+    scale = float(ref.abs().max())
+    for b in range(ref.shape[0]):
+        t = parted.get(b, ref.shape[1])
+        d = (logits[b, :t].cpu() - ref[b, :t]).abs()
+        if (d > DEC_RTOL * ref[b, :t].abs() + DEC_ATOL * scale).any():
+            raise AssertionError(f"{label}: row {b}'s logits beyond tolerance, max {float(d.max()):.3e}")
+        if b not in parted and int(lengths[b]) != int(ref_lengths[b]):
+            raise AssertionError(f"{label}: row {b}'s length {int(lengths[b])} != the CPU's "
+                                 f"{int(ref_lengths[b])}")
+    steps = logits.shape[1]
+    ms, _ = host_ms(lambda: decode(decoder, enc), 3)
+    log(f"{label}: logits {tuple(logits.shape)}, lengths {lengths.tolist()}; equal to the CPU's "
+        f"(labels, lengths, logits within rtol {DEC_RTOL}, atol {DEC_ATOL} x max|logit|) but "
+        f"{len(parted)} rows parting at near-ties {parted}; {ms / steps:.3f} ms a step "
+        f"({ms:.1f} ms for {steps} steps, host clock, synchronised, mean of 3)")
+    return logits, ms / steps
+
+
+def labelsync_on_both(label, logits):
+    """BeamSearchDecoder(beam_width=LABELSYNC_WIDTH) on the card and on the
+    CPU on the same logits: hypotheses equal, scores within 1e-5. Returns
+    the card's ms a batch."""
+    B_, _, C = logits.shape
+    card = BeamSearchDecoder(B_, C, beam_width=LABELSYNC_WIDTH, device=logits.device)
+    cpu = BeamSearchDecoder(B_, C, beam_width=LABELSYNC_WIDTH, device="cpu")
+    probas, hyps = card.decode(logits, channels_last=True)
+    cprobas, chyps = cpu.decode(logits.cpu(), channels_last=True)
+    if hyps != chyps or max(abs(a - b) for a, b in zip(probas, cprobas)) > 1e-5 * max(
+            1.0, max(map(abs, cprobas))):
+        raise AssertionError(f"{label}: the card's label-sync beam differs from the CPU's")
+    ms, _ = host_ms(lambda: card.decode(logits, channels_last=True), 3)
+    log(f"{label} BeamSearchDecoder(beam_width={LABELSYNC_WIDTH}): hypotheses equal to the "
+        f"CPU's on equal logits (lengths {[len(h) for h in hyps]}); {ms:.3f} ms a batch "
+        f"(host clock, synchronised, mean of 3)")
+    return ms
+
+
+def decoders_phase(dev, path, card):
+    """(c) EncDec (a 512 x 25 encoder + ByteNetDecoder, 32 channels,
+    max_time ENCDEC_MAX_TIME) and the RNN pair (512 x 25 + RNNByteNetDecoder,
+    hidden 256, 3 layers, max_time RNN_MAX_TIME) at scale 1, random weights,
+    on the encodings of one RawSignalGenerator batch: generate and unfold,
+    then the label-sync beam on their logits, against the CPU."""
+    gen = raw_signal_generator(path, SEED + 2)
+    try:
+        signal = torch.from_numpy(gen.fetch().signal).to(dev)
+    finally:
+        gen.close()
+    out = {}
+    for name, build, decode in (
+            ("EncDec generate", lambda: build_encdec(scale=1, max_time=ENCDEC_MAX_TIME,
+                                                     device=dev),
+             lambda d, e: d.generate(e)),
+            ("RNN pair unfold", lambda: build_rnn_decoder_pair(scale=1, max_time=RNN_MAX_TIME,
+                                                              device=dev),
+             lambda d, e: d.unfold(e))):
+        encoder, decoder = build()
+        encoder.reset_parameters(torch.Generator().manual_seed(SEED))
+        decoder.reset_parameters(torch.Generator().manual_seed(SEED + 1))
+        with torch.no_grad():
+            enc = encoder.eval()(signal)
+        del encoder
+        logits, step_ms = decoder_on_both(f"(c) {name}", decode, decoder.eval(), enc)
+        out[name] = dict(step_ms=step_ms, beam_ms=labelsync_on_both(f"(c) {name}", logits))
+    log(f"(c) card {card}")
+    return out
+
+
+def run_autoregressive(dev, card):
+    """Phase 14: the pretraining loop, fast-WaveNet generation and the
+    autoregressive decoders with the label-sync beam. card: nvidia-smi's
+    name and power limit. Returns the launches and holds for the kernels
+    line."""
+    t0 = time.perf_counter()
+    dev = resolve_device(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as tmp:
+        path = Path(tmp) / "genome.hdf5"
+        with genome_file(path, SEED) as how:
+            log(f"phase 14 genome: {AR_CONTIGS} seeded random contigs of "
+                f"{AR_CONTIG_BASES[0]}-{AR_CONTIG_BASES[1]} bases ({how})")
+            pre = pretrain_phase(dev, path, card)
+            torch.cuda.empty_cache()
+            gen = generation_phase(dev, card)
+            torch.cuda.empty_cache()
+            dec = decoders_phase(dev, path, card)
+    check_numerics("phase 14")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return dict(pre=pre, gen=gen, dec=dec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -4393,6 +4788,8 @@ def main() -> int:
     quality = run_quality(dev, smi)
     # ---- 13. the rest of multi-device: TP, RawCTCNet SP, BatchNorm over DP, decoders
     multi = run_multi(dev, smi)
+    # ---- 14. pretraining, fast-WaveNet generation, the autoregressive decoders
+    ar = run_autoregressive(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -4490,6 +4887,26 @@ def main() -> int:
         k = next(k for k in kernels if k["name"] == name)
         k["phase13_launches"] = counts
         k["phase13_max_abs_err"] = multi["held"][name]["err"]
+    # phase 14's launches on each kernel's first line, and B1/B2 at its shape
+    pre = ar["pre"]
+    phase14 = {"ctc_alpha": {f"pretrain_ctc, {PRETRAIN_STEPS} steps": pre["launches"]["ctc_alpha"],
+                             "ctc_loss_flat": pre["flat_launches"]["ctc_alpha"]},
+               "ctc_beta": {f"pretrain_ctc, {PRETRAIN_STEPS} steps": pre["launches"]["ctc_beta"]},
+               "fused_gated_block": {"fast-WaveNet priming": ar["gen"]["launches"][
+                   "fused_gated_block"]}}
+    for name, counts in phase14.items():
+        next(k for k in kernels if k["name"] == name)["phase14_launches"] = counts
+    next(k for k in kernels if k["name"] == "fused_gated_block")["phase14_max_abs_err"] = \
+        ar["gen"]["err"]
+    for key, name, line in (("b1", "ctc_alpha", 83), ("b2", "ctc_beta", 142)):
+        k = pre[key]
+        kernels.append(dict(
+            name=name, shape=f"PosEnc pretrain_ctc {pre['shape']}", route="cuda",
+            source="wavenet_speech_tpu_torch/csrc/ctc.cu",
+            replaces=f"wavenet_speech_tpu/ops/pallas/ctc.py:{line}",
+            launches=pre["launches"][name], max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

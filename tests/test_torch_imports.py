@@ -80,20 +80,50 @@ def test_checked_files_cover_the_multi_device_slice():
         assert f"wavenet_speech_tpu_torch/{mod}.py" in names
 
 
-def test_hdf5_loaders_import_without_h5py(monkeypatch):
-    """The card's machine has no h5py: data/hdf5.py imports it inside the
-    loaders' constructors only, so the module (and the facade, the CLI)
-    import without it."""
+def test_checked_files_cover_the_autoregressive_slice():
+    """The pretraining drivers, the autoregressive decoders, fast-WaveNet
+    generation, the label-sync beam and their ops are among the files
+    checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("training/pretrain", "data/raw_signal", "models/bytenet_decoder",
+                "models/rnn_decoder", "models/conv_decoder", "models/fast_wavenet",
+                "models/blocks", "decoding/labelsync", "ops/fns", "ops/linear_conv",
+                "ops/__init__", "data/__init__", "models/__init__"):
+        assert f"wavenet_speech_tpu_torch/{mod}.py" in names
+
+
+def _import_without_h5py(monkeypatch, *modules):
+    """The first module, re-imported (the others after it) while
+    ``import h5py`` raises, after checking that its file has no top-level
+    h5py import."""
     import importlib
     import sys
 
-    path = ROOT / "wavenet_speech_tpu_torch" / "data" / "hdf5.py"
+    path = ROOT / (modules[0].replace(".", "/") + ".py")
     top = [n for n in ast.parse(path.read_text()).body
            if isinstance(n, (ast.Import, ast.ImportFrom))]
     assert top and not any("h5py" in ast.unparse(n) for n in top)
     monkeypatch.setitem(sys.modules, "h5py", None)   # import h5py now raises
-    monkeypatch.delitem(sys.modules, "wavenet_speech_tpu_torch.data.hdf5", raising=False)
-    mod = importlib.import_module("wavenet_speech_tpu_torch.data.hdf5")
+    for name in modules:
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    return [importlib.import_module(name) for name in modules][0]
+
+
+def test_raw_signal_generator_imports_without_h5py(monkeypatch):
+    """RawSignalGenerator, like the HDF5 loaders below, imports h5py in its
+    constructor only, so data/raw_signal.py and the data package import
+    without it."""
+    mod = _import_without_h5py(monkeypatch, "wavenet_speech_tpu_torch.data.raw_signal",
+                               "wavenet_speech_tpu_torch.data")
+    with pytest.raises(ImportError):
+        mod.RawSignalGenerator(None, "genome.hdf5", (100, 200))
+
+
+def test_hdf5_loaders_import_without_h5py(monkeypatch):
+    """The card's machine has no h5py: data/hdf5.py imports it inside the
+    loaders' constructors only, so the module (and the facade, the CLI)
+    import without it."""
+    mod = _import_without_h5py(monkeypatch, "wavenet_speech_tpu_torch.data.hdf5")
     with pytest.raises(ImportError):
         mod.QueueLoader("reads.hdf5")
 

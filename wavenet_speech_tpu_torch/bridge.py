@@ -11,7 +11,11 @@ A SkipSumStack comes in two layouts (wavenet_speech_tpu/models/
 stack.py:95-107): unrolled ``blocks/{i}``, or cycle-stacked ``cycle/b{j}``
 whose leaves carry a leading repeats axis, layer index = r * c + j. The
 facade builds WaveNet cycle-stacked, so a checkpoint of the CLI is in the
-second layout; ``bench.py`` builds unrolled.
+second layout; ``bench.py`` builds unrolled. fast-WaveNet generation runs
+on a ``models.WaveNet`` bridged by ``wavenet_from_jax`` from either.
+
+The autoregressive decoders keep the JAX tree as it is
+(``decoder_from_jax``).
 """
 from __future__ import annotations
 
@@ -88,6 +92,21 @@ def raw_ctcnet_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
     if "positions_1x1" in p:
         out.update(_dense(p["positions_1x1"], "positions_1x1."))
     return out
+
+
+def decoder_from_jax(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict of ``models.ByteNetDecoder``, ``RNNByteNetDecoder`` or
+    ``AttnConvolutionalDecoder`` (and of their blocks and cells) from the
+    JAX module's params: those port modules keep the JAX tree's names and
+    layouts (the RNN and attention decoders' dense ``w`` is (out, in), as
+    in JAX, rnn_decoder.py:129-135), so the tree flattened with "." is the
+    state dict."""
+    if isinstance(p, dict):
+        out = {}
+        for k, v in p.items():
+            out.update(decoder_from_jax(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: _t(p)}
 
 
 def param_tree_from_jax(tree: Tree) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -30,6 +30,14 @@ class Batch:
     label_lengths: np.ndarray
     signal_lengths: np.ndarray
 
+    @property
+    def flat_labels(self) -> np.ndarray:
+        """The targets concatenated, int32 (warp-ctc's convention, used by
+        the reference loaders, utils/pore_model.py:130-165)."""
+        return np.concatenate(
+            [self.labels[b, : self.label_lengths[b]] for b in range(len(self.labels))]
+        ).astype(np.int32) if len(self.labels) else np.zeros((0,), np.int32)
+
 
 class MuLawQuantizer:
     """mu-law companding + uniform levels, exactly the reference's law

@@ -1,4 +1,6 @@
-"""Gated residual block (wavenet_speech_tpu/models/blocks.py:30-91).
+"""Gated residual block (wavenet_speech_tpu/models/blocks.py:30-91), and
+the ByteNet blocks of ``models.ByteNetDecoder`` (blocks.py:95-220) at the
+end of this file.
 
     gate   = tanh(conv_d(x)) * sigmoid(conv_d'(x))   # fused [tanh|sigmoid] conv
     resid  = conv1x1_r(gate) + dense(x)              # residual projection
@@ -32,8 +34,10 @@ from torch import nn
 
 from wavenet_speech_tpu_torch.nn import initializers as init
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
-from wavenet_speech_tpu_torch.ops.conv import noncausal_conv1d, receptive_field
+from wavenet_speech_tpu_torch.ops.conv import (CausalConv1d, Conv1x1, causal_conv1d,
+                                               noncausal_conv1d, receptive_field)
 from wavenet_speech_tpu_torch.ops.fused_block import fused_gated_block
+from wavenet_speech_tpu_torch.ops.norm import LayerNorm
 from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
 
@@ -89,3 +93,104 @@ class ResidualBlock(nn.Module):
         o = act @ self.out_w[0] + self.out_b  # the 1x1 conv
         resid = o[..., :C] + (x @ self.res_w + self.res_b)
         return resid, o[..., C:]
+
+
+# ---- ByteNet blocks (blocks.py:95-220): causal convs, which JAX computes as
+# the composite ops/conv.causal_conv1d (no Pallas kernel), so conv1d here.
+# Submodules and parameters carry the JAX tree's names: a JAX param tree
+# flattened with "." is the state dict (``bridge.decoder_from_jax``).
+
+
+class MultiplicativeUnit(nn.Module):
+    """Causal multiplicative unit (reference block.py:192-225):
+    sigma(g1) * tanh(sigma(g2) * h + sigma(g3) * tanh(u)), the four branch
+    convs fused into one (K, C, 4C) causal conv ``w``. Init: kaiming-normal
+    weights, zero + 1e-3 noise biases."""
+
+    def __init__(self, ndim: int, kernel_width: int, dilation: int = 1, *, device=None):
+        super().__init__()
+        self.ndim, self.kernel_width, self.dilation = ndim, kernel_width, dilation
+        self.w = nn.Parameter(torch.empty((kernel_width, ndim, 4 * ndim), device=device))
+        self.b = nn.Parameter(torch.empty((4 * ndim,), device=device))
+
+    @property
+    def receptive_field(self) -> int:
+        return receptive_field(self.kernel_width, self.dilation)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]):
+        with torch.no_grad():
+            self.w.copy_(init.kaiming_normal(tuple(self.w.shape), generator))
+            self.b.copy_(init.with_noise(init.zeros, 1e-3)(tuple(self.b.shape), generator))
+
+    def forward(self, h):
+        C = self.ndim
+        z = causal_conv1d(h, self.w, self.b, dilation=self.dilation)
+        g1, g2, g3 = (torch.sigmoid(z[..., i * C:(i + 1) * C]) for i in range(3))
+        return g1 * torch.tanh(g2 * h + g3 * torch.tanh(z[..., 3 * C:]))
+
+
+def _halved_stack_params(modules, generator: Optional[torch.Generator]):
+    """Each submodule's init in order, from one generator (JAX: one key a
+    submodule, blocks.py:129-135)."""
+    for m in modules:
+        m.reset_parameters(generator)
+
+
+class ResidualMUBlock(nn.Module):
+    """ByteNet residual multiplicative block (reference block.py:86-126):
+    x + [LN -> ReLU -> 1x1 halve -> LN -> ReLU -> MU(k, d) -> MU(1) ->
+    1x1 double](x)."""
+
+    def __init__(self, nchannels: int, kernel_width: int, dilation: int = 1, *, device=None):
+        super().__init__()
+        C, H = nchannels, nchannels // 2
+        self.kernel_width, self.dilation = kernel_width, dilation
+        self.ln_in = LayerNorm(C, device=device)
+        self.down = Conv1x1(C, H, device=device)
+        self.ln_mid = LayerNorm(H, device=device)
+        self.mu_k = MultiplicativeUnit(H, kernel_width, dilation, device=device)
+        self.mu_1 = MultiplicativeUnit(H, 1, 1, device=device)
+        self.up = Conv1x1(H, C, device=device)
+
+    @property
+    def receptive_field(self) -> int:
+        return receptive_field(self.kernel_width, self.dilation)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]):
+        _halved_stack_params((self.ln_in, self.down, self.ln_mid, self.mu_k, self.mu_1,
+                              self.up), generator)
+
+    def forward(self, x):
+        h = self.down(torch.relu(self.ln_in(x)))
+        h = self.mu_1(self.mu_k(torch.relu(self.ln_mid(h))))
+        return x + self.up(h)
+
+
+class ResidualReLUBlock(nn.Module):
+    """ByteNet residual ReLU block (reference block.py:130-173):
+    x + [LN -> ReLU -> 1x1 halve -> LN -> ReLU -> CausalConv(k, d) -> LN ->
+    ReLU -> 1x1 double](x)."""
+
+    def __init__(self, nchannels: int, kernel_width: int, dilation: int = 1, *, device=None):
+        super().__init__()
+        C, H = nchannels, nchannels // 2
+        self.kernel_width, self.dilation = kernel_width, dilation
+        self.ln_in = LayerNorm(C, device=device)
+        self.down = Conv1x1(C, H, device=device)
+        self.ln_mid = LayerNorm(H, device=device)
+        self.conv = CausalConv1d(H, H, kernel_width, dilation, device=device)
+        self.ln_out = LayerNorm(H, device=device)
+        self.up = Conv1x1(H, C, device=device)
+
+    @property
+    def receptive_field(self) -> int:
+        return receptive_field(self.kernel_width, self.dilation)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]):
+        _halved_stack_params((self.ln_in, self.down, self.ln_mid, self.conv, self.ln_out,
+                              self.up), generator)
+
+    def forward(self, x):
+        h = self.down(torch.relu(self.ln_in(x)))
+        h = self.conv(torch.relu(self.ln_mid(h)))
+        return x + self.up(torch.relu(self.ln_out(h)))

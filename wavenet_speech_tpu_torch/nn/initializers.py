@@ -1,4 +1,4 @@
-"""Parameter initializers of wavenet_speech_tpu/nn/initializers.py:21-66 on
+"""Parameter initializers of wavenet_speech_tpu/nn/initializers.py:21-79 on
 an explicit ``torch.Generator``.
 
 Each returns a new float32 CPU tensor of ``shape``; modules copy it onto
@@ -34,6 +34,12 @@ def kaiming_uniform(shape: Shape, generator: Optional[torch.Generator]) -> torch
     (dense)."""
     bound = math.sqrt(6.0 / _fan_in(shape))
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def kaiming_normal(shape: Shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """torch.nn.init.kaiming_normal_'s default: N(0, sqrt(2 / fan_in)),
+    fan_in as in kaiming_uniform."""
+    return math.sqrt(2.0 / _fan_in(shape)) * torch.randn(shape, generator=generator)
 
 
 def eye(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -134,3 +134,15 @@ def densify_labels(flat_labels, label_lengths, max_len: Optional[int] = None,
         dense[b, :n] = flat_labels[off:off + n]
         off += n
     return dense
+
+
+def ctc_loss_flat(logits, logit_lengths, flat_labels, label_lengths,
+                  blank: int = 0) -> torch.Tensor:
+    """warp-ctc's flat-label API (ops/ctc.py:188-194): concatenated labels
+    (host arrays) densified by ``densify_labels``, then ``ctc_loss`` on
+    the logits' device (B1/B2 on the card)."""
+    dev = logits.device
+    dense = densify_labels(flat_labels, label_lengths)
+    return ctc_loss(logits, torch.as_tensor(np.asarray(logit_lengths), device=dev),
+                    torch.as_tensor(dense, device=dev),
+                    torch.as_tensor(np.asarray(label_lengths), device=dev), blank)
