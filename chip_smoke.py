@@ -231,6 +231,33 @@ from a seed; B=8 one-hot reads of L=4505):
      logits within DEC_RTOL, DEC_ATOL), then BeamSearchDecoder(beam_width=5)
      on their logits, the card's hypotheses equal to the CPU's; ms a
      decoder step and a beam batch.
+ 15. drives the last slice of the port. (a) 4 NPZ shards of 16 seeded
+     reads (levels 0-255 of exactly 4505 samples, labels of 400-429 bases)
+     through data.npz_loader.NPZQueueLoader (spawned workers) into the
+     bench model's float32 joint step (Adagrad 3e-5, res_w scaled as in 4):
+     a single worker's first batch equal to the bit to its recomputation
+     here from the worker's seed, two single-worker streams from one seed
+     equal, a warm step and 5 timed steps with 2 workers (B4 30, B5 30, B1
+     1, B2 1 launches a step; phase 5 holds the kernels at this shape),
+     every loss finite, no worker alive after close(); the step's ms by
+     utils.profiling.StepTimer, the fetches' wait, a worker's ms a batch
+     and its start; bench.py's model FLOPs and the MFU against float32's
+     peak (printed only); one step under utils.profiling.trace, whose
+     Chrome trace must name B4's, B5's, B1's and B2's CUDA kernels, and its
+     top five kernels by device time. (b) tools.bayes_opt.BayesOpt over the
+     learning rate and max_grad_norm (log scale), 4 trials of
+     cli_objective on configs/gauss_quality.json at full width, each cut to
+     10 steps with validation on 1 fixed batch at steps 5 and 10: every
+     vloss finite, B1 12 and B2 10 launches a trial (phase 10 holds them at
+     J=179), the suggestions equal to a CPU search fed the same values,
+     the best config re-run through train_with_result to the same vloss,
+     bit for bit; each trial's seconds. (c) the kmer experiments
+     (examples.kmer_experiments) at main()'s defaults: mapping (nhid 512,
+     B=32; 500 steps, cut from 2000 for time), stay (128 features, 10 + 1 blocks, B=32, 160
+     frames, 300 steps), decode (128 channels, encoding 256, B=32, 100
+     bases, 300 steps): the first loss within 1e-4 of the CPU's from the
+     same init and batch, every loss finite, decode's final CE under 1.2;
+     ms a step.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -248,6 +275,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -265,7 +293,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from wavenet_speech_tpu_torch import cli
+from wavenet_speech_tpu_torch.data import npz_loader
 from wavenet_speech_tpu_torch.data.common import Batch, MuLawQuantizer
+from wavenet_speech_tpu_torch.data.npz_loader import NPZQueueLoader
 from wavenet_speech_tpu_torch.data.raw_signal import RawSignalGenerator
 from wavenet_speech_tpu_torch.data.gaussian_kmer import DEFAULT_KMER_MODEL, kmer_ids
 from wavenet_speech_tpu_torch.data.hdf5 import ecoli_worker_fn
@@ -277,7 +307,7 @@ from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
 from wavenet_speech_tpu_torch.decoding.labelsync import BeamSearchDecoder
 from wavenet_speech_tpu_torch.decoding.streaming import StreamingBeamBatch
-from wavenet_speech_tpu_torch.examples import gaussian_eval
+from wavenet_speech_tpu_torch.examples import gaussian_eval, kmer_experiments
 from wavenet_speech_tpu_torch.facade import Dataset, Decoder, Model
 from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _default_margin,
                                                 chunked_logits, chunked_logits_batch)
@@ -312,7 +342,11 @@ from wavenet_speech_tpu_torch.training.pretrain import (build_encdec, build_pose
 from wavenet_speech_tpu_torch.training.trainer import (_forward_losses, all_finite,
                                                        all_reduce_grads, global_norm_safe,
                                                        make_ctc_train_step)
+from wavenet_speech_tpu_torch.tools.bayes_opt import BayesOpt, cli_objective, set_config_path
+from wavenet_speech_tpu_torch.utils import profiling
 from wavenet_speech_tpu_torch.utils.device import resolve_device
+from wavenet_speech_tpu_torch.utils.profiling import (H100_HBM_BYTES_PER_S, H100_PEAK_TFLOPS,
+                                                      H100_TF32_PEAK_TFLOPS, conv_stack_flops)
 from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 SEED = 0
@@ -321,11 +355,12 @@ LEVELS, LABELS, POOL = 256, 5, 4
 WAVENET_DILS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512] * 3
 CLASSIFIER_DILS = [1, 2, 4, 8, 16, 32] * 3
 BEAM_WIDTH = 7
-# published H100 SXM peaks (NVIDIA data sheet) at a 700 W power limit
-PEAK_F32_FLOPS = 67e12               # float32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12             # TF32 on the tensor cores, dense
+# published H100 SXM peaks (NVIDIA data sheet) at a 700 W power limit, from
+# the port's one table of them (utils/profiling.py)
+PEAK_F32_FLOPS = H100_PEAK_TFLOPS["f32"] * 1e12        # float32 outside the tensor cores
+PEAK_TF32_FLOPS = H100_TF32_PEAK_TFLOPS * 1e12         # TF32 on the tensor cores, dense
 SPLIT_PRODUCTS = 3                   # TF32 products a float32-accurate split product takes
-PEAK_BYTES = 3.35e12                 # HBM3
+PEAK_BYTES = H100_HBM_BYTES_PER_S                      # HBM3
 # B4 tolerance: |kernel - plain| <= B4_RTOL * |plain| + B4_ATOL * max|plain|.
 # Both sum the same f32 products (512 and 256 terms a block) in another
 # order, so the error scales with the tensor's magnitude, which the
@@ -369,7 +404,7 @@ STEP_PARAM_RTOL = 1e-4
 # by one act step (<= 2^-8) times |out_w|: + 2 * 2^-8 * max|out_w|.
 BF16 = torch.bfloat16
 BF16_STEP = 2.0 ** -7
-PEAK_BF16_FLOPS = 989e12             # bf16 on the tensor cores, dense
+PEAK_BF16_FLOPS = H100_PEAK_TFLOPS["bf16"] * 1e12      # bf16 on the tensor cores, dense
 # At full depth the untrained stack turns a flipped bf16 rounding into a
 # gradient change as large as the gradient (PERF.md), so the bf16 gradients
 # and updates are held where the depth is cut to 3+2 blocks: within
@@ -1222,8 +1257,8 @@ def run_training(dev):
     b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
     step, tx, state, launches = phase_train_steps(model, batch)
     phase_train_small(dev)
-    time_training(model, step, tx, state, batch)
-    return dict(b5=b5, b1=b1, b2=b2, launches=launches)
+    step_ms = time_training(model, step, tx, state, batch)
+    return dict(b5=b5, b1=b1, b2=b2, launches=launches, step_ms=step_ms)
 
 
 # ---- 6. bf16 training ---------------------------------------------------------
@@ -4628,6 +4663,312 @@ def run_autoregressive(dev, card):
     return dict(pre=pre, gen=gen, dec=dec)
 
 
+# ---- 15. the last slice: NPZ shards, the hyperparameter search, the kmer experiments --
+
+NPZ_SHARDS, NPZ_READS = 4, 16              # (a): shards of reads, all of L samples
+NPZ_BASES = (400, 430)                     # label reads of 400-429 bases: S <= 429
+NPZ_WORKERS, NPZ_TIMED = 2, 5              # 5 timed steps after a warm one, 1 traced
+NPZ_TIMEOUT = 120.0                        # a spawned worker's start, generously
+NPZ_STEP_LAUNCHES = {"fused_gated_block": len(WAVENET_DILS),
+                     "fused_gated_block_bwd": len(WAVENET_DILS), "ctc_alpha": 1,
+                     "ctc_beta": 1}
+# the CUDA kernels of B4, B5, B1, B2 in the float32 step (csrc/*.cu)
+TRACE_KERNELS = {"B4": ("fused_gated_block_kernel",),
+                 "B5": ("bwd_rows_kernel", "bwd_wgrad_kernel"),
+                 "B1": ("ctc_alpha_kernel",), "B2": ("ctc_beta_kernel",)}
+SEARCH_SPACE = {"training.optim.learning_rate": (1e-5, 1e-2, "log"),
+                "training.optim.max_grad_norm": (0.5, 50.0, "log")}
+SEARCH_TRIALS = 4
+# (b): each trial cut to 10 steps, validation (1 fixed batch) at steps 5 and 10
+SEARCH_CUTS = {"max_iters": 10, "print_every": 5, "save_every": 1000,
+               "fixed_valid_batches": 1}
+SEARCH_LAUNCHES = {"ctc_alpha": SEARCH_CUTS["max_iters"] + 2,
+                   "ctc_beta": SEARCH_CUTS["max_iters"]}
+# (c): the experiments at main()'s defaults but mapping's steps, cut from
+# 2000 to 500 for the script's time; the card's first loss against the
+# CPU's from the same init and batch
+KMER_RUNS = {
+    "mapping": ("run_mapping", 500, dict(batch_size=32, nhid=512, lr=2e-3)),
+    "stay": ("run_stay", 300, dict(batch_size=32, num_features=128, lr=1e-3)),
+    "decode": ("run_decode", 300, dict(batch_size=32, nt_length=100, channels=128,
+                                       enc_dim=256, lr=2e-3)),
+}
+KMER_FIRST_RTOL = 1e-4
+DECODE_CE_BOUND = 1.2                      # JAX's tests/test_kmer_experiments.py:41
+
+
+def write_npz_shards(tmp):
+    """NPZ_SHARDS shards of NPZ_READS seeded reads: levels 0-255 of exactly
+    L samples (a 2-D array), label reads of 400-429 bases in 1..4."""
+    rng = np.random.default_rng(SEED)
+    for s in range(NPZ_SHARDS):
+        signals = rng.integers(0, LEVELS, size=(NPZ_READS, L)).astype(np.uint8)
+        reads = np.array([rng.integers(1, LABELS, size=int(rng.integers(*NPZ_BASES)))
+                          for _ in range(NPZ_READS)], dtype=object)
+        np.savez(Path(tmp) / f"shard_{s}.npz", signals=signals, reads=reads)
+    return str(Path(tmp) / "shard_*.npz")
+
+
+def drain(loader):
+    """Every batch of a fresh loader, then close() it."""
+    try:
+        return [loader.dequeue(timeout=NPZ_TIMEOUT) for _ in range(loader.max_iters)]
+    finally:
+        loader.close()
+
+
+def check_closed(loader, label):
+    alive = [p.pid for p in loader._procs if p.is_alive()]
+    if alive:
+        raise AssertionError(f"(a) {label}: workers {alive} alive after close()")
+
+
+def bench_model_flops():
+    """bench.py:66-87's model FLOPs of one joint step (3x the forward, no
+    recompute) at the bench shape, through the port's conv_stack_flops."""
+    C, Lp = LEVELS, L // POOL
+    fwd = 2 * 2 * C * C * L * B                                   # WaveNet entry conv k=2
+    fwd += conv_stack_flops([(C, C, 2, d) for d in WAVENET_DILS], L, B, train=False)
+    fwd += 2 * (C * C) * 2 * L * B                                # WaveNet out stack
+    clf = [(C, C, 2, 1)] + [(C, C, 2, d) for d in CLASSIFIER_DILS]
+    fwd += conv_stack_flops(clf, Lp, B, train=False)
+    fwd += 2 * (C * C + C * LABELS) * Lp * B                      # classifier out stack
+    return 3 * fwd
+
+
+def trace_kernels(path):
+    """{CUDA kernel name: (calls, device µs)} of a Chrome trace."""
+    out = {}
+    for e in json.loads(Path(path).read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            n, us = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    return out
+
+
+def npz_joint_step(dev, card, phase5_ms):
+    """(a) NPZ shards through NPZQueueLoader into the bench joint step.
+    Three loaders start together, since a spawned worker's start is the
+    slow part: two single-worker streams from one seed, and the main
+    path's, whose queue fills meanwhile."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_npz_") as tmp:
+        pattern = write_npz_shards(tmp)
+        t0 = time.perf_counter()
+        one, twin = (NPZQueueLoader(pattern, batch_size=B, num_levels=LEVELS, num_workers=1,
+                                    max_iters=2, seed=SEED) for _ in range(2))
+        loader = NPZQueueLoader(pattern, batch_size=B, num_levels=LEVELS, one_hot=True,
+                                num_workers=NPZ_WORKERS, max_iters=NPZ_TIMED + 2, seed=SEED)
+        try:
+            mb = npz_streams(one, twin, t0)
+            out = npz_steps(dev, card, loader, mb, Path(tmp) / "trace", phase5_ms)
+        finally:
+            for ld in (one, twin, loader):
+                ld.close()
+        for ld, label in ((one, "single worker"), (twin, "twin"),
+                          (loader, f"{NPZ_WORKERS} workers")):
+            check_closed(ld, label)
+    return out
+
+
+def npz_streams(one, twin, t0):
+    """The single worker's first batch equal to its recomputation here from
+    the worker's seed, and the two single-worker streams equal. Returns a
+    batch's MB."""
+    first = one.dequeue(timeout=NPZ_TIMEOUT)
+    first_s = time.perf_counter() - t0
+    stream = [first, one.dequeue(timeout=NPZ_TIMEOUT)]
+    again = npz_loader.make_batch(one.paths, np.random.default_rng(one.worker_seeds[0]),
+                                  B, LEVELS, True)
+    for f, a in zip(FIELDS, again):
+        if not np.array_equal(getattr(first, f), a) or getattr(first, f).dtype != a.dtype:
+            raise AssertionError(f"(a) the worker's first batch differs from its "
+                                 f"recomputation in {f}")
+    for i, (a, b) in enumerate(zip(stream, drain(twin))):
+        if not all(np.array_equal(getattr(a, f), getattr(b, f)) for f in FIELDS):
+            raise AssertionError(f"(a) two single-worker streams from one seed differ "
+                                 f"at batch {i}")
+    if first.signal.shape != (B, L, LEVELS) or not first.labels.shape[1] <= S_LABELS:
+        raise AssertionError(f"(a) batch shapes {first.signal.shape}, {first.labels.shape}")
+    batch_ms, _ = host_ms(lambda: npz_loader.make_batch(
+        one.paths, np.random.default_rng(1), B, LEVELS, True), 3)
+    pickle_ms, _ = host_ms(lambda: pickle.loads(pickle.dumps(
+        again, pickle.HIGHEST_PROTOCOL)), 3)
+    mb = sum(a.nbytes for a in again) / 1e6
+    log(f"(a) NPZQueueLoader: the first batch equals its recomputation from the worker's "
+        f"seed, two single-worker streams equal; a worker's batch {batch_ms:.1f} ms "
+        f"(make_batch here, host clock, mean of 3), {mb:.1f} MB, its pickle round trip "
+        f"here {pickle_ms:.1f} ms; a single worker's first batch {first_s:.2f} s after the "
+        f"loaders' start (3 loaders, 4 spawned workers; each imports this script as "
+        f"__mp_main__): start-up ~{first_s - batch_ms / 1e3:.2f} s")
+    return mb
+
+
+def npz_steps(dev, card, loader, mb, trace_dir, phase5_ms):
+    """The main path: a warm step and NPZ_TIMED timed steps of the bench
+    model fed by the loader, then one step under profiling.trace."""
+    model = scale_res_w(Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED))
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"))
+    state = TrainState.create(param_tree(model.model_base, model.model_ctc), tx)
+    timer, waits, losses, labels_s, queued = profiling.StepTimer(), [], [], [], []
+    for i in range(NPZ_TIMED + 1):
+        queued.append(loader._q.qsize())
+        t0 = time.perf_counter()
+        batch = loader.dequeue(timeout=NPZ_TIMEOUT)
+        if i:
+            waits.append((time.perf_counter() - t0) * 1e3)
+        labels_s.append(batch.labels.shape[1])
+        reset_counts()
+        with timer.step() as s:
+            state, m = step(state, batch_to_device(batch, dev))
+            loss = s.sync_value = m["total_loss"]
+        counts = {k: v for k, v in read_counts().items() if v}
+        if counts != NPZ_STEP_LAUNCHES:
+            raise AssertionError(f"(a) step {i}: launches {counts}, expected "
+                                 f"{NPZ_STEP_LAUNCHES}")
+        losses.append(float(loss))
+        if i == 0:
+            timer.times.clear()          # the warm step
+    batch = loader.dequeue(timeout=NPZ_TIMEOUT)
+    with profiling.trace(str(trace_dir)) as prof:
+        state, m = step(state, batch_to_device(batch, dev))
+        losses.append(float(m["total_loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(a) losses {losses}")
+    kernels = trace_kernels(prof.trace_path)
+    missing = [k for k, names in TRACE_KERNELS.items()
+               if not any(n in name for n in names for name in kernels)]
+    if missing:
+        raise AssertionError(f"(a) the trace names no CUDA kernel of {missing}: "
+                             f"{sorted(kernels)[:20]}")
+    step_ms = timer.mean * 1e3
+    flops = bench_model_flops()
+    log(f"(a) NPZ-fed joint step (bench model, f32, Adagrad {TRAIN_LR}, B={B}, L={L}, S "
+        f"{min(labels_s)}-{max(labels_s)}, {NPZ_WORKERS} workers): launches a step "
+        f"{NPZ_STEP_LAUNCHES} (phase 5 holds these kernels at this shape); losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"(a) step {step_ms:.3f} ms (StepTimer: host clock, synchronised by a readback, "
+        f"mean of {len(timer.times)} after a warm step; p50 {timer.percentile(50) * 1e3:.3f}, "
+        f"max {timer.percentile(100) * 1e3:.3f}; phase 5's step at this shape in this run "
+        f"{phase5_ms:.3f} ms, CUDA events on a batch already on the card); fetch "
+        f"wait {np.mean(waits):.3f} ms mean, {max(waits):.3f} max ({len(waits)} fetches; "
+        f"{mb / np.mean(waits) * 1e3:.0f} MB/s), batches queued before each fetch {queued}")
+    log(f"(a) model FLOPs {flops:.4e} a step (bench.py's count); MFU "
+        f"{profiling.mfu(flops, step_ms / 1e3, 'f32'):.4f} against the float32 peak "
+        f"{profiling.H100_PEAK_TFLOPS['f32']} TFLOP/s; card {card}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    log(f"(a) trace {Path(prof.trace_path).name}: {len(kernels)} CUDA kernels, the "
+        f"top five by device time: " + "; ".join(f"{n[:60]} {c} calls {us / 1e3:.3f} ms"
+                                                 for n, (c, us) in top))
+    return dict(launches=NPZ_STEP_LAUNCHES, step_ms=step_ms, fetch_ms=float(np.mean(waits)))
+
+
+def search_cfg(values, run_dir):
+    cfg = json.loads(LONG_CONFIG.read_text())
+    cfg["training"].update(SEARCH_CUTS)
+    for path, v in values.items():
+        cfg = set_config_path(cfg, path, v)
+    return set_config_path(cfg, "training.save_dir", str(run_dir))
+
+
+def hyperparameter_search(dev, card):
+    """(b) BayesOpt over cli_objective on configs/gauss_quality.json."""
+    base = json.loads(LONG_CONFIG.read_text())
+    base["training"].update(SEARCH_CUTS)
+    objective = cli_objective(base, device=dev)
+    counts, secs = [], []
+
+    def counted(values):
+        reset_counts()
+        t0 = time.perf_counter()
+        y = objective(values)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append({k: v for k, v in read_counts().items() if v})
+        return y
+
+    t0 = time.perf_counter()
+    best = BayesOpt(SEARCH_SPACE, seed=SEED).minimize(counted, num_trials=SEARCH_TRIALS)
+    total = time.perf_counter() - t0
+    for i, ((values, y), c, s) in enumerate(zip(best["trials"], counts, secs)):
+        log(f"(b) trial {i}: lr {values['training.optim.learning_rate']:.4e}, max_grad_norm "
+            f"{values['training.optim.max_grad_norm']:.4f} -> vloss {y!r} in {s:.2f} s; "
+            f"launches {c}")
+        if not math.isfinite(y):
+            raise AssertionError(f"(b) trial {i}: vloss {y}")
+        if c != SEARCH_LAUNCHES:
+            raise AssertionError(f"(b) trial {i}: launches {c}, expected {SEARCH_LAUNCHES}")
+    cpu = BayesOpt(SEARCH_SPACE, seed=SEED)
+    for i, (values, y) in enumerate(best["trials"]):
+        if cpu.suggest() != values:
+            raise AssertionError(f"(b) trial {i}: the card's search suggested {values}, a "
+                                 f"CPU search fed the same values another point")
+        cpu.observe(values, y)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_search_") as tmp:
+        again = cli.train_with_result(search_cfg(best["values"], tmp), dev)["vloss"]
+    if again != best["value"]:
+        raise AssertionError(f"(b) the best trial re-run: vloss {again!r} != {best['value']!r}")
+    log(f"(b) BayesOpt({list(SEARCH_SPACE)}, seed={SEED}) over cli_objective on "
+        f"configs/gauss_quality.json at full width (cut: {SEARCH_CUTS}): {SEARCH_TRIALS} "
+        f"trials in {total:.2f} s (host clock), best vloss {best['value']!r}, equal to the "
+        f"bit when its config is re-run; suggestions equal to a CPU search's; B1/B2 "
+        f"launches a trial {SEARCH_LAUNCHES} (10 steps, 2 validations; phase 10 holds B1/B2 "
+        f"at J=179); card {card}")
+    return dict(launches=SEARCH_LAUNCHES, secs=secs, total=total)
+
+
+def kmer_runs(dev, card):
+    """(c) the kmer experiments on the card at main()'s default widths."""
+    out = {}
+    for name, (run, steps, kw) in KMER_RUNS.items():
+        fn = getattr(kmer_experiments, run)
+        want = fn(1, seed=SEED, device="cpu", **kw)
+        seen, marks = [], []
+
+        def callback(k, loss):
+            seen.append(loss)
+            if k == 0:
+                marks.append(time.perf_counter())
+
+        last = fn(steps, seed=SEED, device=dev, callback=callback, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - marks[0]) * 1e3 / (steps - 1)
+        losses = torch.stack(seen).cpu()
+        first = float(losses[0])
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"(c) {name}: a loss is not finite")
+        if not math.isclose(first, want, rel_tol=KMER_FIRST_RTOL):
+            raise AssertionError(f"(c) {name}: the first loss {first!r} on the card, "
+                                 f"{want!r} on the CPU")
+        if name == "decode" and not last < DECODE_CE_BOUND:
+            raise AssertionError(f"(c) decode: final CE {last} >= {DECODE_CE_BOUND}")
+        kernels = cuda_kernels_a_step(lambda n: fn(n + 1, seed=SEED, device=dev, **kw), 3)
+        extra = (f", chance ln 1024 = {math.log(1024):.4f}" if name == "mapping" else
+                 f", bound {DECODE_CE_BOUND}" if name == "decode" else "")
+        log(f"(c) {name} ({kw}, {steps} steps): first loss {first!r} (CPU {want!r}), final "
+            f"{last!r}{extra}; {ms:.3f} ms a step (host clock, steps 1-{steps - 1}), "
+            f"{kernels:.0f} CUDA kernels a step (torch.profiler), {ms * 1e3 / kernels:.1f} µs "
+            f"a kernel; card {card}")
+        out[name] = dict(first=first, last=last, ms=ms, kernels=kernels)
+    return out
+
+
+def run_last_slice(dev, card, phase5_ms):
+    """Phase 15: the NPZ shard loader into the bench joint step, the
+    hyperparameter search over train, the kmer experiments. phase5_ms:
+    phase 5's step at the same shape, for comparison."""
+    t0 = time.perf_counter()
+    dev = resolve_device(dev)
+    npz = npz_joint_step(dev, card, phase5_ms)
+    torch.cuda.empty_cache()
+    search = hyperparameter_search(dev, card)
+    torch.cuda.empty_cache()
+    kmer = kmer_runs(dev, card)
+    check_numerics("phase 15")
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return dict(npz=npz, search=search, kmer=kmer)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -4790,6 +5131,8 @@ def main() -> int:
     multi = run_multi(dev, smi)
     # ---- 14. pretraining, fast-WaveNet generation, the autoregressive decoders
     ar = run_autoregressive(dev, smi)
+    # ---- 15. the NPZ shard loader, the hyperparameter search, the kmer experiments
+    last = run_last_slice(dev, smi, train["step_ms"])
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -4898,6 +5241,14 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name)["phase14_launches"] = counts
     next(k for k in kernels if k["name"] == "fused_gated_block")["phase14_max_abs_err"] = \
         ar["gen"]["err"]
+    # phase 15's launches on each kernel's first line: a NPZ-fed step, a search trial
+    npz_step = f"NPZ-fed bench joint step, {NPZ_WORKERS} workers, a step"
+    trial = "gauss_quality search trial (10 steps, 2 validations), a trial"
+    for name in NPZ_STEP_LAUNCHES:
+        counts = {npz_step: last["npz"]["launches"][name]}
+        if name in last["search"]["launches"]:
+            counts[trial] = last["search"]["launches"][name]
+        next(k for k in kernels if k["name"] == name)["phase15_launches"] = counts
     for key, name, line in (("b1", "ctc_alpha", 83), ("b2", "ctc_beta", 142)):
         k = pre[key]
         kernels.append(dict(

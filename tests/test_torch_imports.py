@@ -92,6 +92,48 @@ def test_checked_files_cover_the_autoregressive_slice():
         assert f"wavenet_speech_tpu_torch/{mod}.py" in names
 
 
+def test_checked_files_cover_the_last_slice():
+    """The NPZ shard loader, the offline tools, the hyperparameter search,
+    the kmer experiments and the profiling module are among the files
+    checked above: with them every module of the JAX package has its
+    counterpart but nn/core.py (the JAX module base) and ops/pallas/ (the
+    kernels, csrc/)."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("data/npz_loader", "tools/__init__", "tools/bayes_opt",
+                "tools/fit_durations", "tools/dump_distributions",
+                "examples/kmer_experiments", "utils/profiling"):
+        assert f"wavenet_speech_tpu_torch/{mod}.py" in names
+    jax_modules = {p.relative_to(ROOT / "wavenet_speech_tpu").as_posix()
+                   for p in (ROOT / "wavenet_speech_tpu").rglob("*.py")
+                   if "pallas" not in p.parts and p.name != "core.py"}
+    port = {p.relative_to(ROOT / "wavenet_speech_tpu_torch").as_posix()
+            for p in (ROOT / "wavenet_speech_tpu_torch").rglob("*.py")}
+    assert jax_modules <= port, sorted(jax_modules - port)
+
+
+def test_npz_loader_module_imports_without_torch():
+    """A spawned NPZ worker imports data/npz_loader.py: numpy and
+    data/common.py only, not torch (the data package's exports load at
+    first use)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, wavenet_speech_tpu_torch.data.npz_loader; "
+            "print(sorted(m for m in ('torch', 'h5py', 'scipy') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out
+
+
+def test_dump_distributions_imports_without_h5py(monkeypatch):
+    """The card's machine has no h5py: tools/dump_distributions.py imports
+    it inside the functions that write or read HDF5."""
+    mod = _import_without_h5py(monkeypatch, "wavenet_speech_tpu_torch.tools.dump_distributions")
+    assert mod.string_to_array("ACGT").tolist() == [1, 3, 2, 4]
+    with pytest.raises(ImportError):
+        mod.dump_reference("ref.fa", "out.hdf5")
+
+
 def _import_without_h5py(monkeypatch, *modules):
     """The first module, re-imported (the others after it) while
     ``import h5py`` raises, after checking that its file has no top-level

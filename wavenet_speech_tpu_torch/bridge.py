@@ -15,7 +15,8 @@ second layout; ``bench.py`` builds unrolled. fast-WaveNet generation runs
 on a ``models.WaveNet`` bridged by ``wavenet_from_jax`` from either.
 
 The autoregressive decoders keep the JAX tree as it is
-(``decoder_from_jax``).
+(``decoder_from_jax``), and so does the kmer mapping experiment's MLP
+(``mlp_from_jax``).
 """
 from __future__ import annotations
 
@@ -107,6 +108,12 @@ def decoder_from_jax(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(decoder_from_jax(v, f"{prefix}{k}."))
         return out
     return {prefix[:-1]: _t(p)}
+
+
+def mlp_from_jax(layers: List[Tree]) -> List[Dict[str, torch.Tensor]]:
+    """The kmer mapping experiment's MLP (a list of {"w": (in, out), "b"})
+    from JAX's list of the same layers (examples/kmer_experiments.py)."""
+    return [_dense(layer, "") for layer in layers]
 
 
 def param_tree_from_jax(tree: Tree) -> Dict[str, Dict[str, torch.Tensor]]:

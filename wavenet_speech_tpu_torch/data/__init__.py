@@ -1,15 +1,31 @@
-from wavenet_speech_tpu_torch.data.common import (ALPHABET, Batch, MuLawQuantizer,
-                                                  interleave_zeros, one_hot_lc)
-from wavenet_speech_tpu_torch.data.gaussian_kmer import (DEFAULT_KMER_MODEL,
-                                                         GaussianModelLoader,
-                                                         RawGaussianModelLoader, kmer_ids)
-from wavenet_speech_tpu_torch.data.hdf5 import BucketedLoader, QueueLoader, ecoli_worker_fn
-from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModelLoader
-from wavenet_speech_tpu_torch.data.prefetch import batch_to_device, prefetch_to_device
-from wavenet_speech_tpu_torch.data.raw_signal import RawSignalGenerator
+"""The data layer (wavenet_speech_tpu/data/__init__.py's exports).
 
-__all__ = ["ALPHABET", "Batch", "MuLawQuantizer", "one_hot_lc", "interleave_zeros",
-           "PoreModelLoader", "DEFAULT_CURRENTS", "GaussianModelLoader",
-           "RawGaussianModelLoader", "DEFAULT_KMER_MODEL", "kmer_ids", "RawSignalGenerator",
-           "QueueLoader", "BucketedLoader", "ecoli_worker_fn", "prefetch_to_device",
-           "batch_to_device"]
+The exports are imported at first use (PEP 562), so importing one module of
+the package, such as ``data.npz_loader`` in a spawned worker process, does
+not import torch or the other loaders."""
+import importlib
+
+_EXPORTS = {
+    "ALPHABET": "common", "Batch": "common", "MuLawQuantizer": "common",
+    "one_hot_lc": "common", "interleave_zeros": "common",
+    "PoreModelLoader": "pore_model", "DEFAULT_CURRENTS": "pore_model",
+    "GaussianModelLoader": "gaussian_kmer", "RawGaussianModelLoader": "gaussian_kmer",
+    "DEFAULT_KMER_MODEL": "gaussian_kmer", "kmer_ids": "gaussian_kmer",
+    "RawSignalGenerator": "raw_signal",
+    "QueueLoader": "hdf5", "BucketedLoader": "hdf5", "ecoli_worker_fn": "hdf5",
+    "prefetch_to_device": "prefetch", "batch_to_device": "prefetch",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
