@@ -37,6 +37,7 @@ from wavenet_speech_tpu_torch.decoding.streaming import (StreamingBeamBatch,
                                                          streaming_beam_decode)
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params
 from wavenet_speech_tpu_torch.utils.device import resolve_device
+from wavenet_speech_tpu_torch.utils.profiling import span
 
 
 def _params_of(model):
@@ -89,30 +90,45 @@ class Basecaller:
     def __call__(self, signal, lengths=None) -> Tuple[List[str], List[float]]:
         """signal (B, L, C) -> (sequences, scores). lengths: optional (B,)
         true signal lengths, default L; frames past them (and the bucket
-        padding) are not decoded."""
-        raw = np.asarray(signal, np.float32)
-        x = self._bucket(raw)
-        if lengths is None:
-            lengths = np.full((raw.shape[0],), raw.shape[1], np.int32)
-        lengths = np.asarray(lengths, np.int32)
-        logit_lens = (np.asarray(self.logit_length_fn(lengths), np.int32)
-                      if self.logit_length_fn is not None else lengths)
+        padding) are not decoded.
+
+        Under an active ``torch.profiler`` the call marks its phases with
+        ``utils.profiling.span``, in order: ``basecall.bucket`` (the pad
+        and the lengths), ``basecall.to_device`` (the copy),
+        ``basecall.forward``, ``basecall.decode`` (the beam or the argmax)
+        and ``basecall.strings`` (the readbacks and the strings)."""
+        with span("basecall.bucket"):
+            raw = np.asarray(signal, np.float32)
+            x = self._bucket(raw)
+            if lengths is None:
+                lengths = np.full((raw.shape[0],), raw.shape[1], np.int32)
+            lengths = np.asarray(lengths, np.int32)
+            logit_lens = (np.asarray(self.logit_length_fn(lengths), np.int32)
+                          if self.logit_length_fn is not None else lengths)
         with torch.inference_mode():
-            logits = self.model(torch.from_numpy(x).to(self.device))
+            with span("basecall.to_device"):
+                x_dev = torch.from_numpy(x).to(self.device)
+            with span("basecall.forward"):
+                logits = self.model(x_dev)
             if self.beam_width <= 0:
-                labels = argmax_decode(logits).cpu().numpy()
-                return labels2strings(ctc_collapse(labels, lengths=logit_lens,
-                                                   blank=self.blank)), \
-                    [0.0] * labels.shape[0]
-            prefixes, plens, scores = ctc_beam_search(
-                logits, lengths=torch.from_numpy(logit_lens),
-                beam_width=self.beam_width, blank=self.blank,
-                max_label_len=self.max_label_len or x.shape[1],
-                prune=self.cutoff_top_n)
-        best = prefixes[:, 0].cpu().numpy()
-        n = plens[:, 0].cpu().numpy()
-        seqs = labels2strings([best[b, : n[b]] for b in range(len(n))])
-        return seqs, [float(s) for s in scores[:, 0].cpu()]
+                with span("basecall.decode"):
+                    labels = argmax_decode(logits)
+                with span("basecall.strings"):
+                    labels = labels.cpu().numpy()
+                    return labels2strings(ctc_collapse(labels, lengths=logit_lens,
+                                                       blank=self.blank)), \
+                        [0.0] * labels.shape[0]
+            with span("basecall.decode"):
+                prefixes, plens, scores = ctc_beam_search(
+                    logits, lengths=torch.from_numpy(logit_lens),
+                    beam_width=self.beam_width, blank=self.blank,
+                    max_label_len=self.max_label_len or x.shape[1],
+                    prune=self.cutoff_top_n)
+        with span("basecall.strings"):
+            best = prefixes[:, 0].cpu().numpy()
+            n = plens[:, 0].cpu().numpy()
+            seqs = labels2strings([best[b, : n[b]] for b in range(len(n))])
+            return seqs, [float(s) for s in scores[:, 0].cpu()]
 
     def basecall_long(self, signal, chunk_len: int = 16384, margin: Optional[int] = None,
                       chunk_batch: int = 8, beam_chunk_frames: int = 4096,

@@ -50,6 +50,13 @@ update it calls the base model's ``update_state`` (a no-op for WaveNet;
 does. ``make_ctc_train_step`` trains one CTC network (RawCTCNet) alone, on
 a mesh too. The JAX options ``donate`` and ``scan_unroll`` have no meaning
 in an eager loop and are not taken.
+
+Under an active ``torch.profiler`` each step marks its phases with
+``utils.profiling.span``, once each, in this order: ``train.forward``
+(the forward and the loss), ``train.backward`` (the gradients and, on a
+mesh, their all-reduce), ``train.guard`` (the norm, the finiteness and
+the gradients' masking), ``train.update`` (the optimizer, the masking of
+its output, the new params) and, in the joint step, ``train.update_state``.
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from wavenet_speech_tpu_torch.parallel.sharding import (gather_params, param_sha
 from wavenet_speech_tpu_torch.training.loss import JointLoss
 from wavenet_speech_tpu_torch.training.optimizer import (GradientTransformation,
                                                          apply_updates, clip_norm)
+from wavenet_speech_tpu_torch.utils.profiling import span
 from wavenet_speech_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                                  tree_unflatten)
 
@@ -235,15 +243,17 @@ def _guarded_update(state: TrainState, total, grads, tx: GradientTransformation,
     training. A step whose loss or gradients hold a non-finite value leaves
     params and optimizer state as they were. On a TP mesh both read the
     whole tree. Returns (params, opt_state, grad_norm, ok)."""
-    gnorm = global_norm_safe(grads, mesh, specs)
-    ok = torch.isfinite(total) & all_finite(grads, mesh, specs)
-    grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
-    with clip_norm(lambda tree: global_norm_safe(tree, mesh, specs)):
-        updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
-    updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
-    opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
-                         state.opt_state)
-    return apply_updates(state.params, updates), opt_state, gnorm, ok
+    with span("train.guard"):
+        gnorm = global_norm_safe(grads, mesh, specs)
+        ok = torch.isfinite(total) & all_finite(grads, mesh, specs)
+        grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
+    with span("train.update"):
+        with clip_norm(lambda tree: global_norm_safe(tree, mesh, specs)):
+            updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
+        updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
+        opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
+                             state.opt_state)
+        return apply_updates(state.params, updates), opt_state, gnorm, ok
 
 
 def _leaves_with_grad(params):
@@ -317,15 +327,17 @@ def make_joint_train_step(base_model: nn.Module, ctc_model: nn.Module,
 
     def step_fn(state: TrainState, batch) -> tuple:
         sp = _in_order(state.params, specs)
-        leaves, params = _leaves_with_grad(state.params)
-        total, xe, ctc = _forward_losses(base_model, ctc_model, loss,
-                                         _whole(params, mesh, sp), batch,
-                                         logit_length_fn, compute_dtype, mesh)
-        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
+        with span("train.forward"):
+            leaves, params = _leaves_with_grad(state.params)
+            total, xe, ctc = _forward_losses(base_model, ctc_model, loss,
+                                             _whole(params, mesh, sp), batch,
+                                             logit_length_fn, compute_dtype, mesh)
+        with span("train.backward"):
+            grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
         new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx, mesh, sp)
         # non-gradient state (BatchNorm's running statistics), from the
         # pre-update leaves and the uncast signal, on a skipped step too
-        with _sharded(mesh):
+        with span("train.update_state"), _sharded(mesh):
             new_params = dict(new_params, base=base_model.update_state(
                 state.params["base"], new_params["base"], batch["signal"]))
         metrics = {"xe_loss": xe.detach(), "ctc_loss": ctc.detach(),
@@ -366,19 +378,21 @@ def make_ctc_train_step(model: nn.Module, tx: GradientTransformation,
 
     def step_fn(state: TrainState, batch) -> tuple:
         sp = _in_order(state.params, specs)
-        leaves, params = _leaves_with_grad(state.params)
-        params = _cast(_whole(params, mesh, sp), compute_dtype)
-        with _sharded(mesh):
-            signal = batch["signal"]
-            if preprocess is not None:
-                signal = preprocess(signal)
-            logits = functional_call(model, params, (_cast(signal, compute_dtype),))
-        kwargs = {} if mesh is None else {"mesh": mesh}
-        if use_logit_lengths and length_fn is not None:
-            kwargs["logit_lengths"] = length_fn(batch["signal_lengths"])
-        _, total = loss.calculate(None, None, logits, batch["labels"],
-                                  batch["label_lengths"], **kwargs)
-        grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
+        with span("train.forward"):
+            leaves, params = _leaves_with_grad(state.params)
+            params = _cast(_whole(params, mesh, sp), compute_dtype)
+            with _sharded(mesh):
+                signal = batch["signal"]
+                if preprocess is not None:
+                    signal = preprocess(signal)
+                logits = functional_call(model, params, (_cast(signal, compute_dtype),))
+            kwargs = {} if mesh is None else {"mesh": mesh}
+            if use_logit_lengths and length_fn is not None:
+                kwargs["logit_lengths"] = length_fn(batch["signal_lengths"])
+            _, total = loss.calculate(None, None, logits, batch["labels"],
+                                      batch["label_lengths"], **kwargs)
+        with span("train.backward"):
+            grads = all_reduce_grads(_grads(total, state.params, leaves), mesh, sp)
         new_params, opt_state, gnorm, ok = _guarded_update(state, total, grads, tx, mesh, sp)
         metrics = {"ctc_loss": total.detach(), "total_loss": total.detach(),
                    "grad_norm": gnorm, "skipped_nonfinite": (~ok).to(torch.int32)}

@@ -1,7 +1,7 @@
 """Profiling utilities (wavenet_speech_tpu/utils/profiling.py): a
-``torch.profiler`` trace, a step timer that synchronises by reading a value
-back, a model-FLOPs estimator of a conv stack, and MFU against the card's
-peaks.
+``torch.profiler`` trace, the named spans the port marks its phases with, a
+step timer that synchronises by reading a value back, a model-FLOPs
+estimator of a conv stack, and MFU against the card's peaks.
 
 The peaks are the NVIDIA H100 SXM data sheet's at a 700 W power limit, the
 card the port's kernels are written for; this module is their one source
@@ -25,6 +25,20 @@ import torch
 H100_PEAK_TFLOPS = {"bf16": 989.0, "f32": 67.0}
 H100_TF32_PEAK_TFLOPS = 495.0          # TF32 on the tensor cores, dense
 H100_HBM_BYTES_PER_S = 3.35e12         # HBM3
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A region named ``name`` in a ``torch.profiler`` trace: while a
+    profiler records, ``torch.profiler.record_function(name)``, whose host
+    event lands on the trace's clock beside the CUDA kernels and copies;
+    otherwise one shared no-op context. A ``record_function`` costs its
+    enter and exit even with no profiler running; the check keeps the
+    untraced path free of it. The region reads nothing back."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
