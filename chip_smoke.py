@@ -258,6 +258,20 @@ from a seed; B=8 one-hot reads of L=4505):
      bases, 300 steps): the first loss within 1e-4 of the CPU's from the
      same init and batch, every loss finite, decode's final CE under 1.2;
      ms a step.
+ 16. runs the skip guard and the optimizer as multi-tensor launches
+     (ops.multi_tensor, csrc/multi_tensor.cu) at both train cells' trees:
+     the bench WaveNet-CTC's 402 leaves (Adagrad) and the harness's
+     RawCTCNet's 816 (246.7 M parameters, Adamax). (a) one full-width
+     joint train step launches MT_STEP_LAUNCHES multi-tensor kernels;
+     (b) each stage (absmax, sum of squares, select, scale, axpy, add, the
+     rss, rms, adam and adamax rules) against its plain version (the
+     per-leaf operators) on the card: MT_ULPS ulps, the sums of squares
+     within MT_REDUCE_RTOL; (c) the guard (norm, all finite) on a NaN, an
+     inf, finite |g| ~1e19 and all-zero leaves as the plain guard's; (d) a
+     guarded update twice bit-equal and equal to the plain update; a
+     float16 CUDA leaf raises; (e) the update's device time (the host's
+     launching hidden) beside its bound (the work's bytes / 3.35 TB/s) and its
+     stages' own bytes' time, its host time and the plain per-leaf time.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -314,7 +328,7 @@ from wavenet_speech_tpu_torch.inference import (Basecaller, _chunk_grid, _defaul
 from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, blocks, fast_wavenet
 from wavenet_speech_tpu_torch.native import ctc_beam as native_beam
 from wavenet_speech_tpu_torch.native import ctc_beam_search_native
-from wavenet_speech_tpu_torch.ops import _build, ctc_scan
+from wavenet_speech_tpu_torch.ops import _build, ctc_scan, multi_tensor
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.conv import causal_conv1d
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
@@ -417,7 +431,7 @@ BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
 TENSOR_CORE_SOURCES = ("fused_block", "fused_block_bwd", "fused_block_bf16",
                        "fused_block_bwd_bf16")  # wgmma kernels
-PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc", "ctc_beam")  # registers and spills printed
+PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc", "ctc_beam", "multi_tensor")  # registers, spills
 # the causal block at widths the kernels do not take as they are (C_in=6,
 # C=10: zero-padded to 32, 32 in float32 and 8, 16 in bf16) and more taps
 # than one pass of the backward's reduction takes (K=9): B, L, C_in, C, K, d
@@ -859,8 +873,11 @@ def loss_grads(model, batch):
 
 
 def rel_err(a, b):
-    """||a - b|| / ||b|| over lists of tensors, by the overflow-proof norm."""
-    return float(global_norm_safe([x - y for x, y in zip(a, b)]) / global_norm_safe(list(b)))
+    """||a - b|| / ||b|| over lists of tensors, by the overflow-proof norm
+    (its plain version: the lists may be float64)."""
+    with plain_multi_tensor():
+        return float(global_norm_safe([x - y for x, y in zip(a, b)])
+                     / global_norm_safe(list(b)))
 
 
 def grad_sets(model, batch, grads):
@@ -4034,8 +4051,11 @@ def pair_on_mesh(dev, shape, batch_g):
                              mesh)
         held = hold_recorded(rec, [], "(b)")
         del rec
-        f64 = pair_steps(model, tree_map(lambda t: t.double(), params),
-                         dict(batch_g, signal=batch_g["signal"].astype(np.float64)))
+        # the multi-tensor kernels take float32 alone: the float64 steps run
+        # the guard's and the optimizer's plain versions
+        with plain_multi_tensor():
+            f64 = pair_steps(model, tree_map(lambda t: t.double(), params),
+                             dict(batch_g, signal=batch_g["signal"].astype(np.float64)))
         names = [n for part in ("base", "ctc") for n in params[part]]
         steps = []
         for k in range(TRAIN_STEPS):
@@ -4969,6 +4989,267 @@ def run_last_slice(dev, card, phase5_ms):
     return dict(npz=npz, search=search, kmer=kmer)
 
 
+# ---- 16. the multi-tensor guard and optimizer ------------------------------------
+
+MT_LEAVES = {"wavenet_ctc": 402, "raw_ctcnet": 816}   # the benchmark's two train trees
+MT_STEP_LAUNCHES = 10   # guard: absmax 2, sum of squares 2, select 1; update: rule 1,
+#                         learning rate 1, select updates 1, select state 1, add 1
+# ulps a stage's outputs may sit from its plain version's: the rules and
+# selects repeat PyTorch's per-leaf arithmetic operation by operation;
+# the reductions sum in another order (relative, over each leaf's value)
+MT_ULPS = 0
+MT_REDUCE_RTOL = 1e-5
+
+
+def ulp_gap(a, b):
+    """Largest distance in float32 steps between a and b (NaN where exactly
+    one of them is NaN)."""
+    if torch.isnan(a).ne(torch.isnan(b)).any():
+        return math.nan
+    ia, ib = (torch.where(torch.isnan(t), 0.0, t).view(torch.int32).to(torch.int64)
+              for t in (a, b))
+    ia, ib = (torch.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def plain_multi_tensor():
+    """Every ops.multi_tensor call takes its plain version (per-leaf
+    operators) on CUDA leaves too."""
+    return mock.patch.object(multi_tensor, "_on_card", lambda xs: False)
+
+
+def mt_trees(dev):
+    """The two train cells' parameter trees on the card: the bench WaveNet-CTC
+    (phase 5's model) and the harness's 246.7 M-parameter RawCTCNet."""
+    wn = Model("wavenet-ctc", cfg_full_width(), device=dev).init(SEED)
+    shapes = {k: v.shape for k, v in
+              gaussian_eval.build_model(1.0, nhid=512, device="meta").state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    raw = {k: 0.05 * torch.randn(sh, generator=g, device=dev) for k, sh in shapes.items()}
+    trees = {"wavenet_ctc": (param_tree(wn.model_base, wn.model_ctc), "adagrad", TRAIN_LR),
+             "raw_ctcnet": (raw, "adamax", 2e-4)}
+    for name, (tree, _, _) in trees.items():
+        if len(tree_leaves(tree)) != MT_LEAVES[name]:
+            raise AssertionError(f"{name}: {len(tree_leaves(tree))} leaves, expected "
+                                 f"{MT_LEAVES[name]}")
+    return wn, trees
+
+
+def mt_grads(tree, seed, scale=1e-3):
+    g = torch.Generator(device=tree_leaves(tree)[0].device).manual_seed(seed)
+    return tree_map(lambda p: scale * torch.randn(p.shape, generator=g, device=p.device), tree)
+
+
+def mt_bytes(leaves, optim_type):
+    """(least, staged) bytes of a guarded update. least: the work's, the
+    gradients, params and optimizer state read once, params and state
+    written once. staged: this design's, each stage reading and writing its
+    lists: absmax and the squares read g; the select reads and writes it;
+    the rule reads g and its state, writes u and the state; the learning
+    rate and the update's select read and write u; the state's select
+    reads the new and old state, writes one; the add reads p and u, writes
+    p."""
+    e = 4 * sum(l.numel() for l in leaves)
+    state = {"adagrad": 1, "adamax": 2}[optim_type]
+    return e * (3 + 2 * state), e * (1 + 1 + 2 + (2 + 2 * state) + 2 + 2 + 3 * state + 3)
+
+
+def mt_stage_checks(name, leaves, grads):
+    """Each stage on the kernels against its plain version on the card."""
+    g = [x.contiguous() for x in grads]
+    p = leaves
+    s = [x.abs() + 0.1 for x in mt_grads(p, 5, 1.0)]
+    m = mt_grads(p, 6)
+    c1 = 1 - torch.pow(0.9, torch.tensor(7.0, device=p[0].device))
+    c2 = 1 - torch.pow(0.999, torch.tensor(7.0, device=p[0].device))
+    ok, lr = torch.tensor(True, device=p[0].device), torch.tensor(-2e-4, device=p[0].device)
+    absmax = multi_tensor.absmax_ref(g)
+    scale = torch.clamp(absmax.max(), min=torch.finfo(torch.float32).tiny)
+    stages = {
+        "absmax": (lambda f: [f.absmax(g)]),
+        "sum_squares": (lambda f: [f.sum_squares(g, scale)]),
+        "select": (lambda f: f.select(ok, g) + f.select(~ok, g, p)),
+        "scale": (lambda f: f.scale(g, -2e-4) + f.scale(g, lr)),
+        "add_scaled": (lambda f: f.add_scaled(g, p, 1e-2)),
+        "add": (lambda f: f.add(p, g)),
+        "rss": (lambda f: sum(f.rss(g, s, 1e-7), [])),
+        "rms": (lambda f: sum(f.rms(g, s, 0.9, 1e-8), [])),
+        "adam": (lambda f: sum(f.adam(g, m, s, 0.9, 0.999, 1e-8, c1, c2), [])),
+        "adamax": (lambda f: sum(f.adamax(g, m, s, 0.9, 0.999, 1e-8, c1), [])),
+    }
+    out = {}
+    for stage, fn in stages.items():
+        got = fn(multi_tensor)
+        with plain_multi_tensor():
+            want = fn(multi_tensor)
+        torch.cuda.synchronize()
+        if stage == "sum_squares":
+            gap = float(((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-30)).max())
+            bad = not gap <= MT_REDUCE_RTOL
+        else:
+            gap = max(ulp_gap(a, b) for a, b in zip(got, want))
+            bad = not gap <= MT_ULPS
+        out[stage] = gap
+        if bad:
+            raise AssertionError(f"phase 16 {name}: {stage} on the kernels is {gap} from its "
+                                 f"plain version")
+    log(f"phase 16 {name}: each stage against its plain version on the card (ulps; "
+        f"sum_squares relative, bound {MT_REDUCE_RTOL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    return out
+
+
+def mt_guard_checks(name, grads):
+    """The guard on injected leaves: a NaN, an inf, finite |g| ~1e19 (whose
+    squares overflow float32), an all-zero tree; against the plain guard."""
+    out = {}
+    for case in ("finite", "nan", "inf", "1e19", "zeros"):
+        g = tree_map(torch.clone, grads)
+        leaves = tree_leaves(g)
+        if case in ("nan", "inf"):
+            leaves[len(leaves) // 2].view(-1)[3] = math.nan if case == "nan" else math.inf
+        elif case == "1e19":
+            leaves[-1].mul_(3e22)
+        elif case == "zeros":
+            for x in leaves:
+                x.zero_()
+        got = (float(global_norm_safe(g)), bool(all_finite(g)))
+        with plain_multi_tensor():
+            want = (float(global_norm_safe(g)), bool(all_finite(g)))
+        finite = case not in ("nan", "inf")
+        same_norm = (math.isnan(got[0]) and math.isnan(want[0])) or \
+            abs(got[0] - want[0]) <= MT_REDUCE_RTOL * abs(want[0])
+        if got[1] != want[1] or got[1] != finite or not same_norm:
+            raise AssertionError(f"phase 16 {name}: guard on {case}: kernels (norm, finite) "
+                                 f"{got}, plain {want}")
+        out[case] = got
+    log(f"phase 16 {name}: guard (norm, all finite) on the kernels, as the plain guard's: "
+        + ", ".join(f"{k} ({v[0]:.6g}, {v[1]})" for k, v in out.items()))
+    return out
+
+
+def mt_update(tree, grads, optim_type, lr, total):
+    """One guarded update (the train step's guard and optimizer) of a fresh
+    state of tree, on the given gradients."""
+    tx = build_optimizer(optim_type, lr)
+    state = TrainState.create(tree, tx)
+    return lambda: trainer._guarded_update(state, total, grads, tx)
+
+
+def mt_checkpoints_equal(name, one, plain, dev):
+    """A checkpoint of the kernels' state (each output list one allocation
+    cut into views) has the bytes of one of the plain update's (a storage a
+    leaf), whose leaves are equal to the bit."""
+    step = torch.ones((), dtype=torch.int32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for tag, out in (("kernels", one), ("plain", plain)):
+            save_checkpoint(os.path.join(tmp, tag), TrainState(out[0], out[1], step))
+            files.append((Path(tmp) / tag / "1" / "state.pt").read_bytes())
+    if files[0] != files[1]:
+        raise AssertionError(f"phase 16 {name}: the kernels' checkpoint differs from the "
+                             f"plain update's")
+    log(f"phase 16 {name}: checkpoints of the kernels' and the plain update's states: the "
+        f"same {len(files[0])} bytes")
+
+
+def mt_tree_phase(name, tree, optim_type, lr, dev, checkpoint):
+    leaves = tree_leaves(tree)
+    grads = mt_grads(tree, 1)
+    stages = mt_stage_checks(name, leaves, tree_leaves(grads))
+    guard = mt_guard_checks(name, grads)
+    total = torch.tensor(1.5, device=dev)
+    run = mt_update(tree, grads, optim_type, lr, total)
+    before = multi_tensor.launches
+    one = run()
+    torch.cuda.synchronize()
+    launches = multi_tensor.launches - before
+    two = run()
+    with plain_multi_tensor():
+        plain = run()
+    torch.cuda.synchronize()
+    flat = lambda out: tree_leaves((out[0], out[1])) + [out[2]]
+    if not all(torch.equal(a, b) for a, b in zip(flat(one), flat(two))):
+        raise AssertionError(f"phase 16 {name}: two guarded updates differ")
+    gaps = [ulp_gap(a.float(), b.float()) for a, b in zip(flat(one)[:-1], flat(plain)[:-1])]
+    norm_gap = abs(float(one[2]) - float(plain[2])) / float(plain[2])
+    if launches != MT_STEP_LAUNCHES or max(gaps) > MT_ULPS or norm_gap > MT_REDUCE_RTOL:
+        raise AssertionError(f"phase 16 {name}: launches {launches} (expected "
+                             f"{MT_STEP_LAUNCHES}), params and state {max(gaps)} ulps from "
+                             f"the plain update's, norm {norm_gap:.3e}")
+    if checkpoint:
+        mt_checkpoints_equal(name, one, plain, dev)
+    host, _ = host_ms(run, 10)
+    ms = queued_ms(run, 10, host)
+    with plain_multi_tensor():
+        plain_ms = host_ms(run, 3)[0]
+    bound_ms, staged_ms = (b / H100_HBM_BYTES_PER_S * 1e3 for b in mt_bytes(leaves, optim_type))
+    try:
+        multi_tensor.select(torch.tensor(True, device=dev), [leaves[0].half()])
+        raise AssertionError(f"phase 16 {name}: a float16 CUDA leaf did not raise")
+    except ValueError:
+        pass
+    log(f"phase 16 {name}: {len(leaves)} leaves, {sum(l.numel() for l in leaves)} elements, "
+        f"{optim_type}: guarded update {ms:.4f} ms on the card (host {host:.3f} ms a call), "
+        f"bound {bound_ms:.4f} ms (the work's bytes / {H100_HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"the stages' own bytes {staged_ms:.4f} ms), "
+        f"plain per-leaf {plain_ms:.3f} ms; {launches} launches; two runs bit-equal; params "
+        f"and state {max(gaps)} ulps from the plain update's, norm {norm_gap:.3e}; float16 "
+        f"raises")
+    return dict(leaves=len(leaves), launches=launches, ms=ms, host_ms=host, bound_ms=bound_ms,
+                staged_ms=staged_ms, plain_ms=plain_ms, stages=stages, guard=guard)
+
+
+def queued_ms(fn, reps, host):
+    """Device ms a call of fn, the host's launching hidden: the device first
+    spins for about twice the host's time to queue the reps calls (host ms
+    a call), so they run back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * host * 2e6))   # cycles, at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def mt_step_launches(model, dev):
+    """The main path: one full-width joint train step (Adagrad) on the
+    card goes through the kernels, MT_STEP_LAUNCHES launches."""
+    tx = build_optimizer("adagrad", TRAIN_LR)
+    step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"))
+    state = TrainState.create(param_tree(model.model_base, model.model_ctc), tx)
+    before = multi_tensor.launches
+    state, m = step(state, bench_batch(dev))
+    torch.cuda.synchronize()
+    launches = multi_tensor.launches - before
+    if launches != MT_STEP_LAUNCHES or int(m["skipped_nonfinite"]) != 0:
+        raise AssertionError(f"phase 16: a train step launched {launches} multi-tensor "
+                             f"kernels (expected {MT_STEP_LAUNCHES}), skipped "
+                             f"{int(m['skipped_nonfinite'])}")
+    log(f"phase 16: a full-width joint train step: {launches} multi-tensor launches")
+    return launches
+
+
+def run_multi_tensor(dev, card):
+    """Phase 16: csrc/multi_tensor.cu at the two train cells' trees."""
+    t0 = time.perf_counter()
+    dev = resolve_device(dev)
+    model, trees = mt_trees(dev)
+    out = {"step_launches": mt_step_launches(model, dev)}
+    del model
+    for name, (tree, optim_type, lr) in trees.items():
+        # the RawCTCNet's pair of checkpoints would be 2 x 3 GB: the WaveNet's shows it
+        out[name] = mt_tree_phase(name, tree, optim_type, lr, dev, name == "wavenet_ctc")
+        torch.cuda.empty_cache()
+    check_numerics("phase 16")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -5133,6 +5414,8 @@ def main() -> int:
     ar = run_autoregressive(dev, smi)
     # ---- 15. the NPZ shard loader, the hyperparameter search, the kmer experiments
     last = run_last_slice(dev, smi, train["step_ms"])
+    # ---- 16. the guard and the optimizer as multi-tensor launches, both train trees
+    mt = run_multi_tensor(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -5258,6 +5541,17 @@ def main() -> int:
             launches=pre["launches"][name], max_abs_err=k["err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
+    for name in MT_LEAVES:
+        k = mt[name]
+        kernels.append(dict(
+            name="multi_tensor", shape=f"{name} tree, {k['leaves']} leaves", route="cuda",
+            source="wavenet_speech_tpu_torch/csrc/multi_tensor.cu",
+            replaces="none (XLA fused the guard and optax's rules under jit)",
+            launches=k["launches"], max_abs_err=max(v for s, v in k["stages"].items()
+                                                    if s != "sum_squares"),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by="bytes",
+            library_ms=None, host_ms=k["host_ms"], staged_ms=k["staged_ms"],
+            step_launches=mt["step_launches"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

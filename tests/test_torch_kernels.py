@@ -17,7 +17,11 @@ the 1x1 product, where one flipped rounding moves an output by up to
 2^-8 * |out_w| (two allowed). The multi-device cases run 2 gloo ranks on
 the card (``parallel.run_ranks``): the seq-sharded decode's chain of B6
 calls must give the bits of one call, and the gather of CUDA slices the
-slices laid end to end."""
+slices laid end to end. The multi-tensor guard and rules repeat PyTorch's
+per-leaf arithmetic operation by operation (0 ulps; the guard's sums of
+squares in another order, rtol 1e-5)."""
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -28,12 +32,15 @@ from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref)
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
+from wavenet_speech_tpu_torch.ops import multi_tensor
 from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
                                                       fused_gated_block_ref)
 from wavenet_speech_tpu_torch.parallel import run_ranks
+from wavenet_speech_tpu_torch.training import TrainState, build_optimizer, trainer
+from wavenet_speech_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +418,92 @@ def test_gloo_gather_of_cuda_slices(cuda):
                         timeout=300.0)
         for got in out:
             assert torch.equal(got, x)
+
+
+# ragged leaves: empty, one element, a chunk and one, several chunks, a
+# strided (transposed) one
+MT_SHAPES = [(0,), (1,), (16385,), (3, 20000), (129, 7), (5,)]
+
+
+def _mt_lists(cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lists = [[torch.randn(sh, generator=g, device=cuda) for sh in MT_SHAPES] for _ in range(4)]
+    lists[0][4] = lists[0][4].t().contiguous().t()   # a strided gradient
+    lists[2] = [x.abs() + 0.1 for x in lists[2]]
+    return lists
+
+
+def _as_plain():
+    return mock.patch.object(multi_tensor, "_on_card", lambda xs: False)
+
+
+@pytest.mark.parametrize("op", ["select", "scale", "add_scaled", "add", "rss", "rms", "adam",
+                                "adamax"])
+def test_multi_tensor_rules_match_plain(cuda, op):
+    g, p, s, m = _mt_lists(cuda, 1)
+    ok = torch.tensor(True, device=cuda)
+    c1 = 1 - torch.pow(0.9, torch.tensor(4.0, device=cuda))
+    c2 = 1 - torch.pow(0.999, torch.tensor(4.0, device=cuda))
+    call = {"select": lambda f: f.select(ok, g) + f.select(~ok, g, p),
+            "scale": lambda f: f.scale(g, -0.05) + f.scale(g, c1),
+            "add_scaled": lambda f: f.add_scaled(g, p, 0.1),
+            "add": lambda f: f.add(p, g),
+            "rss": lambda f: sum(f.rss(g, s, 1e-7), []),
+            "rms": lambda f: sum(f.rms(g, s, 0.9, 1e-8), []),
+            "adam": lambda f: sum(f.adam(g, m, s, 0.9, 0.999, 1e-8, c1, c2), []),
+            "adamax": lambda f: sum(f.adamax(g, m, s, 0.9, 0.999, 1e-8, c1), [])}[op]
+    before = multi_tensor.launches
+    got = call(multi_tensor)
+    assert multi_tensor.launches > before
+    with _as_plain():
+        want = call(multi_tensor)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous()
+        assert torch.equal(a, b), op
+
+
+@pytest.mark.parametrize("case", ["finite", "nan", "inf", "1e19", "zeros"])
+def test_multi_tensor_guard_matches_plain(cuda, case):
+    g = _mt_lists(cuda, 2)[0][1:]   # the plain absmax takes no empty leaf
+    if case in ("nan", "inf"):
+        g[2][1, 7] = float("nan") if case == "nan" else float("inf")
+    elif case == "1e19":
+        g[1] *= 1e19
+    elif case == "zeros":
+        g = [torch.zeros_like(x) for x in g]
+    tree = {"g": g}
+    got = trainer.global_norm_safe(tree), trainer.all_finite(tree)
+    with _as_plain():
+        want = trainer.global_norm_safe(tree), trainer.all_finite(tree)
+    assert bool(got[1]) == bool(want[1]) == (case not in ("nan", "inf"))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0, equal_nan=True)
+    assert torch.equal(multi_tensor.absmax(g).nan_to_num(-1.0),
+                       multi_tensor.absmax_ref(g).nan_to_num(-1.0))
+
+
+def test_multi_tensor_guarded_update_is_deterministic_and_plain(cuda):
+    """Two guarded Adamax updates give the same bits, and the plain
+    update's params and state."""
+    g, p, _, _ = _mt_lists(cuda, 3)
+    params, grads = {"p": p[1:]}, {"p": g[1:]}
+    tx = build_optimizer("adamax", 2e-4, max_grad_norm=1.0)
+    state = TrainState.create(params, tx)
+    total = torch.tensor(2.0, device=cuda)
+    run = lambda: trainer._guarded_update(state, total, grads, tx)
+    one, two = run(), run()
+    with _as_plain():
+        plain = run()
+    for a, b, c in zip(*(tree_leaves(x[:3]) for x in (one, two, plain))):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=0)
+
+
+def test_multi_tensor_refuses_other_types(cuda):
+    ok = torch.tensor(True, device=cuda)
+    for bad in ([torch.ones(3, device=cuda, dtype=torch.float16)],
+                [torch.ones(3, device=cuda), torch.ones(3)],
+                [torch.ones(3, device=cuda, dtype=torch.float64)]):
+        with pytest.raises(ValueError):
+            multi_tensor.scale(bad, 2.0)
+    with pytest.raises(ValueError):
+        multi_tensor.select(ok, [torch.ones(3, device=cuda)], [torch.ones(4, device=cuda)])

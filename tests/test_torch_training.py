@@ -4,7 +4,10 @@ losses, every optimizer rule and schedule against optax for 3 steps, the
 overflow-proof norm and clip at a 1e18 scale, the bridged train state, and
 3 joint steps of a small model from bridged weights against JAX
 ``make_joint_train_step`` (f32; full length and length-aware; K=2 on one
-batch), the skip guard on a NaN batch, and the eval step.
+batch), the skip guard on a NaN batch, and the eval step. Off the card the
+guard's and the rules' list-wise calls (ops.multi_tensor) must give the
+bits of the per-leaf operators they replaced, and never reach the CUDA
+libraries.
 Tolerance: rtol 1e-4 (atol 1e-6) for losses, metrics, states and params: f32
 sums over frames, channels and blocks in another order."""
 import jax
@@ -27,6 +30,7 @@ from wavenet_speech_tpu.training.trainer import all_finite as j_all_finite
 from wavenet_speech_tpu.training.trainer import global_norm_safe as j_global_norm_safe
 from wavenet_speech_tpu_torch import bridge
 from wavenet_speech_tpu_torch.models import WaveNet, WaveNetClassifier
+from wavenet_speech_tpu_torch.ops import _build, multi_tensor
 from wavenet_speech_tpu_torch.training import (JointLoss, Optimizer, ReduceLROnPlateau,
                                                TrainState, build_optimizer, make_eval_step,
                                                make_joint_train_step, make_lr_schedule,
@@ -160,12 +164,13 @@ def test_safe_clip_at_1e18_scale():
     assert np.isfinite(moved) and moved > 0
 
 
-@pytest.mark.parametrize("case", ["1e18", "nan", "inf", "zeros"])
+@pytest.mark.parametrize("case", ["1e18", "nan", "inf", "zeros", "finite", "1e19"])
 def test_all_finite_and_global_norm_safe_match_jax(case):
     """A NaN leaf gives norm 0 in both (JAX's docstring says non-finite:
-    its max is NaN and NaN > 0 is false); an inf leaf gives NaN in both."""
+    its max is NaN and NaN > 0 is false); an inf leaf gives NaN in both.
+    Finite leaves of |g| ~1e19, whose squares overflow f32, are finite."""
     rng = np.random.default_rng(4)
-    tree = _tree(rng, 1e18 if case == "1e18" else 1.0)
+    tree = _tree(rng, {"1e18": 1e18, "1e19": 1e19}.get(case, 1.0))
     if case in ("nan", "inf"):
         tree["w"][1, 2] = np.nan if case == "nan" else np.inf
     if case == "zeros":
@@ -176,6 +181,151 @@ def test_all_finite_and_global_norm_safe_match_jax(case):
     got, want = float(global_norm_safe(tt)), float(j_global_norm_safe(jt))
     np.testing.assert_allclose(got, want, **TOL)
     assert np.isfinite(got) == (case != "inf")
+
+
+# ---- the list-wise plain path (ops.multi_tensor off the card) -------------------
+
+def _old_bias_correction(decay, count):
+    return 1 - torch.pow(torch.tensor(decay, device=count.device), count.float())
+
+
+def _old_global_norm_safe(leaves):
+    absmax = torch.stack([l.abs().max() for l in leaves]).max()
+    scale = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
+    ssq = sum([torch.sum((l / scale) ** 2) for l in leaves])
+    return torch.where(absmax > 0, scale * torch.sqrt(ssq), 0.0)
+
+
+def _mt_lists(values):
+    rng = np.random.default_rng(7)
+    shapes = [(4,), (3, 4), (2, 3, 5), (1,), (2, 7)]
+    lists = [[torch.from_numpy(rng.standard_normal(sh).astype(np.float32)) for sh in shapes]
+             for _ in range(4)]
+    lists[2] = [x.abs() + 0.5 for x in lists[2]]   # second moments, sums: positive
+    lists[3] = [x * 1e-3 for x in lists[3]]
+    if values == "nonfinite":
+        lists[0][1][1, 2], lists[0][2][0, 1, 3] = np.nan, np.inf
+    if values == "zeros":
+        lists[0] = [torch.zeros_like(x) for x in lists[0]]
+    return lists
+
+
+def _per_leaf(op, g, p, nu, m):
+    """(list-wise call, the per-leaf operators the rules ran before it)."""
+    c = torch.tensor(3, dtype=torch.int32)
+    c1, c2 = _old_bias_correction(0.9, c), _old_bias_correction(0.999, c)
+    ok = torch.tensor(op.endswith("skip") is False)
+    scale = torch.clamp(torch.stack([x.abs().max() for x in g]).max(),
+                        min=torch.finfo(torch.float32).tiny)
+    if op == "absmax":
+        return [multi_tensor.absmax(g)], [torch.stack([x.abs().max() for x in g])]
+    if op == "sum_squares":
+        return ([multi_tensor.sum_squares(g, scale)],
+                [torch.stack([torch.sum((x / scale) ** 2) for x in g])])
+    if op == "global_norm_safe":
+        return [global_norm_safe({"g": g})], [_old_global_norm_safe(g)]
+    if op == "all_finite":
+        return ([all_finite({"g": g})],
+                [torch.stack([torch.isfinite(x).all() for x in g]).all()])
+    if op.startswith("select"):
+        return (multi_tensor.select(ok, g) + multi_tensor.select(ok, g, p),
+                [torch.where(ok, x, 0.0) for x in g] + [torch.where(ok, x, y)
+                                                        for x, y in zip(g, p)])
+    if op == "scale":
+        lr = torch.tensor(-0.05)
+        return (multi_tensor.scale(g, -0.05) + multi_tensor.scale(g, lr)
+                + multi_tensor.scale(g, scale),
+                [-0.05 * x for x in g] + [lr.to(x.dtype) * x for x in g]
+                + [x * scale for x in g])
+    if op == "add_scaled":
+        return multi_tensor.add_scaled(g, p, 0.1), [x + 0.1 * y for x, y in zip(g, p)]
+    if op == "add":
+        return multi_tensor.add(p, g), [(y + x).to(y.dtype) for x, y in zip(g, p)]
+    if op == "rss":
+        ssq = [x * x + s for x, s in zip(g, nu)]
+        return (sum(multi_tensor.rss(g, nu, 1e-7), []),
+                [torch.where(s > 0, torch.rsqrt(s + 1e-7), 0.0) * x
+                 for x, s in zip(g, ssq)] + ssq)
+    if op == "rms":
+        n2 = [(1 - 0.9) * (x ** 2) + 0.9 * n for x, n in zip(g, nu)]
+        return (sum(multi_tensor.rms(g, nu, 0.9, 1e-8), []),
+                [torch.rsqrt(n + 1e-8) * x for x, n in zip(g, n2)] + n2)
+    if op == "adam":
+        mu = [(1 - 0.9) * x + 0.9 * y for x, y in zip(g, m)]
+        n2 = [(1 - 0.999) * (x ** 2) + 0.999 * n for x, n in zip(g, nu)]
+        return (sum(multi_tensor.adam(g, m, nu, 0.9, 0.999, 1e-8, c1, c2), []),
+                [(a / c1) / (torch.sqrt(b / c2) + 1e-8) for a, b in zip(mu, n2)] + mu + n2)
+    if op == "adamax":
+        mu = [(1 - 0.9) * x + 0.9 * y for x, y in zip(g, m)]
+        n2 = [torch.maximum(torch.abs(x) + 1e-8, 0.999 * n) for x, n in zip(g, nu)]
+        return (sum(multi_tensor.adamax(g, m, nu, 0.9, 0.999, 1e-8, c1), []),
+                [(a / c1) / b for a, b in zip(mu, n2)] + mu + n2)
+    raise ValueError(op)
+
+
+MT_OPS = ["absmax", "sum_squares", "global_norm_safe", "all_finite", "select",
+          "select_skip", "scale", "add_scaled", "add", "rss", "rms", "adam", "adamax"]
+
+
+@pytest.mark.parametrize("values", ["finite", "nonfinite", "zeros"])
+@pytest.mark.parametrize("op", MT_OPS)
+def test_multi_tensor_plain_path_is_per_leaf_arithmetic(op, values):
+    """Off the card each list-wise call gives the bits of the per-leaf
+    operators the guard and the rules ran before it (NaN where they give
+    NaN)."""
+    got, want = _per_leaf(op, *_mt_lists(values))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), op
+
+
+def test_bias_correction_matches_the_host_tensor_form():
+    """The bias correction, now with a number as pow's base, gives the bits
+    it gave with a tensor made on the host."""
+    from wavenet_speech_tpu_torch.training.optimizer import _bias_correction
+
+    for decay in (0.9, 0.999):
+        for c in (1, 2, 3, 10, 100, 12345, 2**31 - 1):
+            count = torch.tensor(c, dtype=torch.int32)
+            assert torch.equal(_bias_correction(decay, count),
+                               _old_bias_correction(decay, count)), (decay, c)
+
+
+def test_multi_tensor_layout():
+    """The chunks and output offsets of a launch: every chunk has one owner
+    (the leaf the kernel's binary search finds: the last whose first chunk
+    is at or before it), empty leaves own none, outputs start on ALIGN."""
+    C, A = multi_tensor.CHUNK, multi_tensor.ALIGN
+    numel = np.array([0, 1, C, C + 1, 0, 3 * C - 5, 7, 0], np.int64)
+    starts, offsets = multi_tensor.layout(numel)
+    assert starts.tolist() == [0, 0, 1, 2, 4, 4, 7, 8, 8]
+    for chunk in range(int(starts[-1])):
+        leaf = int(np.searchsorted(starts[:-1], chunk, side="right")) - 1
+        assert starts[leaf] <= chunk < starts[leaf + 1] and numel[leaf] > 0
+    assert all(o % A == 0 for o in offsets)
+    assert (offsets[1:] - offsets[:-1] >= numel).all()
+    assert (offsets[1:] - offsets[:-1] < numel + A).all()
+
+
+def test_cpu_steps_never_load_the_kernels(monkeypatch):
+    """On the CPU every rule and the guard run the per-leaf arithmetic: no
+    CUDA library is built or loaded, no kernel counted."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU step reached the CUDA libraries")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    before = multi_tensor.launches
+    _, _, tnet, tclf, params = _models()
+    for optim_type in ("adam", "adamw", "adagrad", "adamax", "rmsprop", "sgd"):
+        tx = build_optimizer(optim_type, make_lr_schedule(SCHED["warmup_cosine"]),
+                             max_grad_norm=1.0, max_update_norm=0.5)
+        step = make_joint_train_step(tnet, tclf, tx)
+        state, m = step(TrainState.create(bridge.param_tree_from_jax(params), tx), _batch())
+        assert int(m["skipped_nonfinite"]) == 0
+    assert multi_tensor.launches == before and "multi_tensor" not in _build._libs
 
 
 def test_lr_schedules_match_optax():
@@ -265,6 +415,25 @@ def test_nonfinite_batch_is_skipped():
     new, m = step(state, bad)
     assert int(m["skipped_nonfinite"]) == 1 and not np.isfinite(float(m["total_loss"]))
     assert int(new.step) == int(state.step) + 1
+    for a, b in zip(tree_leaves((new.params, new.opt_state)),
+                    tree_leaves((state.params, state.opt_state))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("optim_type", ["adamw", "adagrad", "adamax", "rmsprop", "sgd"])
+def test_skipped_step_keeps_each_rule_state(optim_type):
+    """As above for the other rules, with both norm clips and a schedule: a
+    skipped step leaves params and optimizer state bit for bit as they
+    were."""
+    _, _, tnet, tclf, params = _models()
+    tx = build_optimizer(optim_type, make_lr_schedule(SCHED["warmup_cosine"]),
+                         max_grad_norm=1.0, max_update_norm=0.5)
+    step = make_joint_train_step(tnet, tclf, tx)
+    state, _ = step(TrainState.create(bridge.param_tree_from_jax(params), tx), _batch())
+    bad = _batch()
+    bad["signal"][1, 5, :] = np.inf
+    new, m = step(state, bad)
+    assert int(m["skipped_nonfinite"]) == 1
     for a, b in zip(tree_leaves((new.params, new.opt_state)),
                     tree_leaves((state.params, state.opt_state))):
         assert torch.equal(a, b)

@@ -18,6 +18,11 @@ Where optax and ``torch.optim`` part:
     max(|g| + eps, b2 * nu), no bias correction of nu.
 The updates are negated by the learning rate (``scale_by_learning_rate``)
 and added to the params by ``apply_updates``.
+
+Each rule's elementwise arithmetic is one call of ``ops.multi_tensor`` on
+the lists of its trees' leaves: on the card one kernel launch over every
+leaf (float32; another type raises), elsewhere the per-leaf PyTorch
+operators the rules were written in.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
-from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map
+from wavenet_speech_tpu_torch.ops import multi_tensor
+from wavenet_speech_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 ScalarOrSchedule = Union[float, Schedule]
@@ -68,6 +74,10 @@ def identity() -> GradientTransformation:
                                   lambda updates, state, params=None: (updates, state))
 
 
+def _lists(*trees):
+    return [tree_leaves(t) for t in trees]
+
+
 def scale_by_rss(initial_accumulator_value: float = 0.1,
                  eps: float = 1e-7) -> GradientTransformation:
     """optax.scale_by_rss: g * rsqrt(sum g^2 + eps), 0 where the sum is 0."""
@@ -76,10 +86,9 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
             lambda p: torch.full_like(p, initial_accumulator_value), params)}
 
     def update(updates, state, params=None):
-        ssq = tree_map(lambda g, s: g * g + s, updates, state["sum_of_squares"])
-        updates = tree_map(
-            lambda g, s: torch.where(s > 0, torch.rsqrt(s + eps), 0.0) * g, updates, ssq)
-        return updates, {"sum_of_squares": ssq}
+        u, ssq = multi_tensor.rss(*_lists(updates, state["sum_of_squares"]), eps)
+        return (tree_unflatten(updates, u),
+                {"sum_of_squares": tree_unflatten(state["sum_of_squares"], ssq)})
 
     return GradientTransformation(init, update)
 
@@ -90,15 +99,16 @@ def scale_by_rms(decay: float = 0.9, eps: float = 1e-8) -> GradientTransformatio
         return {"nu": tree_map(torch.zeros_like, params)}
 
     def update(updates, state, params=None):
-        nu = tree_map(lambda g, n: (1 - decay) * (g ** 2) + decay * n, updates, state["nu"])
-        updates = tree_map(lambda g, n: torch.rsqrt(n + eps) * g, updates, nu)
-        return updates, {"nu": nu}
+        u, nu = multi_tensor.rms(*_lists(updates, state["nu"]), decay, eps)
+        return tree_unflatten(updates, u), {"nu": tree_unflatten(state["nu"], nu)}
 
     return GradientTransformation(init, update)
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    return 1 - torch.pow(torch.tensor(decay, device=count.device), count.float())
+    # a number as the base: made on the device, where a tensor built from
+    # one on the host would be a blocking copy
+    return 1 - torch.pow(decay, count.float())
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
@@ -109,12 +119,13 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                 "nu": tree_map(torch.zeros_like, params)}
 
     def update(updates, state, params=None):
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
-        nu = tree_map(lambda g, n: (1 - b2) * (g ** 2) + b2 * n, updates, state["nu"])
         count = _safe_increment(state["count"])
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        updates = tree_map(lambda m, n: (m / c1) / (torch.sqrt(n / c2) + eps), mu, nu)
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        u, mu, nu = multi_tensor.adam(*_lists(updates, state["mu"], state["nu"]),
+                                      b1, b2, eps, c1, c2)
+        return tree_unflatten(updates, u), {"count": count,
+                                            "mu": tree_unflatten(state["mu"], mu),
+                                            "nu": tree_unflatten(state["nu"], nu)}
 
     return GradientTransformation(init, update)
 
@@ -128,12 +139,11 @@ def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
 
     def update(updates, state, params=None):
         count = _safe_increment(state["count"])
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
-        nu = tree_map(lambda g, n: torch.maximum(torch.abs(g) + eps, b2 * n),
-                      updates, state["nu"])
-        c1 = _bias_correction(b1, count)
-        updates = tree_map(lambda m, n: (m / c1) / n, mu, nu)
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        u, mu, nu = multi_tensor.adamax(*_lists(updates, state["mu"], state["nu"]),
+                                        b1, b2, eps, _bias_correction(b1, count))
+        return tree_unflatten(updates, u), {"count": count,
+                                            "mu": tree_unflatten(state["mu"], mu),
+                                            "nu": tree_unflatten(state["nu"], nu)}
 
     return GradientTransformation(init, update)
 
@@ -142,9 +152,14 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs the params")
-        return tree_map(lambda g, p: g + weight_decay * p, updates, params), state
+        return tree_unflatten(updates, multi_tensor.add_scaled(
+            *_lists(updates, params), weight_decay)), state
 
     return GradientTransformation(lambda params: {}, update)
+
+
+def _scaled(tree, s):
+    return tree_unflatten(tree, multi_tensor.scale(tree_leaves(tree), s))
 
 
 def scale_by_learning_rate(learning_rate: ScalarOrSchedule) -> GradientTransformation:
@@ -153,22 +168,21 @@ def scale_by_learning_rate(learning_rate: ScalarOrSchedule) -> GradientTransform
     if not callable(learning_rate):
         return GradientTransformation(
             lambda params: {},
-            lambda updates, state, params=None: (
-                tree_map(lambda g: -learning_rate * g, updates), state))
+            lambda updates, state, params=None: (_scaled(updates, -learning_rate), state))
 
     def init(params):
         return {"count": _count(params)}
 
     def update(updates, state, params=None):
         step_size = -learning_rate(state["count"])
-        updates = tree_map(lambda g: step_size.to(g.dtype) * g, updates)
-        return updates, {"count": _safe_increment(state["count"])}
+        return (_scaled(updates, step_size),
+                {"count": _safe_increment(state["count"])})
 
     return GradientTransformation(init, update)
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    return tree_unflatten(params, multi_tensor.add(*_lists(params, updates)))
 
 
 def _polynomial(init_value: float, end_value: float, transition_steps: int) -> Schedule:
@@ -291,7 +305,7 @@ def _clip_by_global_norm_safe(max_norm: float) -> GradientTransformation:
     def update(updates, state, params=None):
         g = (getattr(_norm, "fn", None) or global_norm_safe)(updates)
         scale = torch.clamp(max_norm / torch.clamp(g, min=1e-30), max=1.0)
-        return tree_map(lambda u: u * scale, updates), state
+        return _scaled(updates, scale), state
 
     return GradientTransformation(lambda params: {}, update)
 
@@ -317,7 +331,7 @@ class Optimizer:
     def update(self, grads, opt_state, params):
         updates, opt_state = self.tx.update(grads, opt_state, params)
         if self._lr_scale != 1.0:
-            updates = tree_map(lambda u: u * self._lr_scale, updates)
+            updates = _scaled(updates, self._lr_scale)
         return updates, opt_state
 
     def adjust_lr(self, new_lr: float):

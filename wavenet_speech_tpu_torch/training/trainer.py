@@ -5,12 +5,13 @@ The step is functional, as in JAX: ``step_fn(state, batch) -> (state,
 metrics)``. Params are a tree ``{"base": {name: tensor}, "ctc": {name:
 tensor}}`` keyed as the modules' state dicts (``param_tree``), and the
 modules run on them through ``torch.func.functional_call``. Nothing in the
-step reads a value back to the host: the skip guard selects with
-``torch.where`` on the device.
+step reads a value back to the host: the skip guard selects on the device.
 
 On the card the causal blocks run their forward and backward kernels (B4,
-B5) and the CTC its alpha and beta kernels (B1, B2); on the CPU the same
-step runs their plain versions.
+B5), the CTC its alpha and beta kernels (B1, B2), and the skip guard and
+the optimizer the multi-tensor kernels (``ops.multi_tensor``: a few
+launches a stage over every leaf); on the CPU the same step runs their
+plain versions.
 
 ``compute_dtype=torch.bfloat16`` is the JAX package's mixed precision
 (trainer.py:42-47, 138-145): the params and the one-hot signal are cast to
@@ -68,6 +69,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from wavenet_speech_tpu_torch.ops import multi_tensor
 from wavenet_speech_tpu_torch.parallel.collectives import (STAT_AXES, all_reduce,
                                                            batch_stats, broadcast)
 from wavenet_speech_tpu_torch.parallel.halo import seq_axis
@@ -106,16 +108,43 @@ def param_tree(base_model: nn.Module, ctc_model: nn.Module):
             "ctc": {k: v.detach().clone() for k, v in ctc_model.state_dict().items()}}
 
 
-def all_finite(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Tensor:
-    """True iff every element of every leaf is finite (trainer.py:50-61).
-    The skip guard's predicate: the finiteness of a naive global norm is
-    false on finite gradients past ~1.8e19, whose squares overflow f32.
-    With a TP mesh and the tree's specs, the whole tree's: this rank's
-    slices and every other rank's of its "model" line."""
-    ok = torch.stack([torch.isfinite(l).all() for l in tree_leaves(tree)]).all()
+def _absmax(leaves) -> torch.Tensor:
+    """The largest |x| of this rank's leaves; NaN if one holds a NaN."""
+    return multi_tensor.absmax(leaves).max()
+
+
+def _finite(absmax: torch.Tensor, mesh: Optional[Mesh], specs) -> torch.Tensor:
+    ok = torch.isfinite(absmax)
     if tp_sharded(mesh, specs):
         ok = all_reduce(ok.to(torch.int32), mesh, "model", "min").bool()
     return ok
+
+
+def _norm(leaves, absmax: torch.Tensor, mesh: Optional[Mesh], specs) -> torch.Tensor:
+    tp = tp_sharded(mesh, specs)
+    if tp:
+        absmax = all_reduce(absmax, mesh, "model", "max")
+    scale = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
+    if not tp:
+        ssq = multi_tensor.total(multi_tensor.sum_squares(leaves, scale))
+    else:
+        split = tree_leaves(specs)
+        sharded, replicated = ([l for l, s in zip(leaves, split) if (s is None) == rep]
+                               for rep in (False, True))
+        ssq = all_reduce(multi_tensor.total(multi_tensor.sum_squares(sharded, scale)),
+                         mesh, "model") \
+            + multi_tensor.total(multi_tensor.sum_squares(replicated, scale))
+    return torch.where(absmax > 0, scale * torch.sqrt(ssq), 0.0)
+
+
+def all_finite(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Tensor:
+    """True iff every element of every leaf is finite (trainer.py:50-61):
+    the leaves' absmax is finite (a NaN or an inf anywhere makes it NaN or
+    inf). The skip guard's predicate: the finiteness of a naive global norm
+    is false on finite gradients past ~1.8e19, whose squares overflow f32.
+    With a TP mesh and the tree's specs, the whole tree's: this rank's
+    slices and every other rank's of its "model" line."""
+    return _finite(_absmax(tree_leaves(tree)), mesh, specs)
 
 
 def global_norm_safe(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Tensor:
@@ -125,21 +154,10 @@ def global_norm_safe(tree, mesh: Optional[Mesh] = None, specs=None) -> torch.Ten
     docstring says non-finite; the skip guard reads all_finite, not this).
     With a TP mesh and the tree's specs, the whole tree's norm: the absmax
     a max over "model", a sharded leaf's squares summed over "model", a
-    replicated leaf's counted once."""
+    replicated leaf's counted once. Each pass over the leaves is one call
+    of ``ops.multi_tensor`` (per-leaf results, so the mesh's split holds)."""
     leaves = tree_leaves(tree)
-    absmax = torch.stack([l.abs().max() for l in leaves]).max()
-    tp = tp_sharded(mesh, specs)
-    if tp:
-        absmax = all_reduce(absmax, mesh, "model", "max")
-    scale = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
-    squares = [torch.sum((l / scale) ** 2) for l in leaves]
-    if not tp:
-        ssq = sum(squares)
-    else:
-        split, zero = tree_leaves(specs), torch.zeros((), device=absmax.device)
-        ssq = all_reduce(sum((q for q, s in zip(squares, split) if s is not None), zero),
-                         mesh, "model") + sum(q for q, s in zip(squares, split) if s is None)
-    return torch.where(absmax > 0, scale * torch.sqrt(ssq), 0.0)
+    return _norm(leaves, _absmax(leaves), mesh, specs)
 
 
 def _batch_to(batch, device):
@@ -244,15 +262,18 @@ def _guarded_update(state: TrainState, total, grads, tx: GradientTransformation,
     params and optimizer state as they were. On a TP mesh both read the
     whole tree. Returns (params, opt_state, grad_norm, ok)."""
     with span("train.guard"):
-        gnorm = global_norm_safe(grads, mesh, specs)
-        ok = torch.isfinite(total) & all_finite(grads, mesh, specs)
-        grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
+        # the kernels read dense leaves: a gradient may come back strided
+        leaves = [g.contiguous() for g in tree_leaves(grads)]
+        absmax = _absmax(leaves)  # one pass serves the norm and the finiteness
+        gnorm = _norm(leaves, absmax, mesh, specs)
+        ok = torch.isfinite(total) & _finite(absmax, mesh, specs)
+        grads = tree_unflatten(grads, multi_tensor.select(ok, leaves))
     with span("train.update"):
         with clip_norm(lambda tree: global_norm_safe(tree, mesh, specs)):
             updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
-        updates = tree_map(lambda u: torch.where(ok, u, 0.0), updates)
-        opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_opt_state,
-                             state.opt_state)
+        updates = tree_unflatten(updates, multi_tensor.select(ok, tree_leaves(updates)))
+        opt_state = tree_unflatten(state.opt_state, multi_tensor.select(
+            ok, tree_leaves(new_opt_state), tree_leaves(state.opt_state)))
         return apply_updates(state.params, updates), opt_state, gnorm, ok
 
 
