@@ -272,6 +272,18 @@ from a seed; B=8 one-hot reads of L=4505):
      float16 CUDA leaf raises; (e) the update's device time (the host's
      launching hidden) beside its bound (the work's bytes / 3.35 TB/s) and its
      stages' own bytes' time, its host time and the plain per-leaf time.
+ 17. runs Bonito's transformer basecaller (configs/bonito_sup_v5.json):
+     (a) the band attention's kernels (csrc/window_attention.cu, W1
+     forward, W2 backward) against their plain version at the train
+     cell's B=32, T=1024, 8 heads of 64, band (127, 128), within TX_RTOL /
+     TX_ATOL, two runs bit-equal; (b) their time there beside the plain
+     version's, scaled_dot_product_attention's under the band mask (the
+     yardstick the port never calls) and the bound (bytes / 3.35 TB/s);
+     (c) B1/B2 at J = 2061, T = 2048 against their plain versions; (d)
+     Model("transformer-ctc") at 76,623,557 parameters: 3 CTC steps with
+     AdamW at the cell's B=32 chunks of 12,288 samples (3 band launches a
+     layer a step), Basecaller.__call__ on 4 short reads (18 launches), and
+     basecall_long's refusal; (e) the train entry point, 4 steps.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -329,6 +341,7 @@ from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, blocks, fast_wav
 from wavenet_speech_tpu_torch.native import ctc_beam as native_beam
 from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan, multi_tensor
+from wavenet_speech_tpu_torch.ops import window_attention as wa
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.conv import causal_conv1d
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
@@ -430,7 +443,7 @@ CUT_DEPTHS = ((([1, 2, 4], [1, 2]), True),
 BF16_GRAD_RTOL = 0.1
 CLI_CONFIG = Path(__file__).resolve().parent / "configs" / "ecoli_hdf5.json"
 TENSOR_CORE_SOURCES = ("fused_block", "fused_block_bwd", "fused_block_bf16",
-                       "fused_block_bwd_bf16")  # wgmma kernels
+                       "fused_block_bwd_bf16", "window_attention")  # wgmma kernels
 PTXAS_SOURCES = TENSOR_CORE_SOURCES + ("ctc", "ctc_beam", "multi_tensor")  # registers, spills
 # the causal block at widths the kernels do not take as they are (C_in=6,
 # C=10: zero-padded to 32, 32 in float32 and 8, 16 in bf16) and more taps
@@ -5250,6 +5263,222 @@ def run_multi_tensor(dev, card):
     return out
 
 
+# ---- phase 17: Bonito's transformer basecaller (configs/bonito_sup_v5.json)
+TX_CONFIG = Path(__file__).resolve().parent / "configs" / "bonito_sup_v5.json"
+TX_B, TX_T, TX_H, TX_DH, TX_WINDOW = 32, 1024, 8, 64, (127, 128)  # the train cell's layer
+TX_RTOL, TX_ATOL = 1e-4, 1e-5  # split products vs einsum: sums in another order (x max |ref|)
+TX_CTC = (8, 2048, 1030)       # (c): B, logit frames, labels: J = 2061
+TX_STEPS, TX_STEP_B = 3, 32    # (d): train steps at full width on 12,288-sample chunks
+TX_CLI_STEPS = 4               # (e): the train entry point
+
+
+def tx_band_inputs(B, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, TX_T, 3, TX_H, TX_DH), generator=g).cuda()
+    do = torch.randn((B, TX_T, TX_H, TX_DH), generator=g).cuda()
+    return qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2], do
+
+
+def tx_band_work(B):
+    """(FLOPs, bytes) of one layer's band attention, forward and backward:
+    4 + 8 B H band dh (no recompute); the forward reads q, k, v and writes o,
+    the backward reads q, k, v, o, dO and writes dq, dk, dv."""
+    return (12.0 * B * TX_H * wa.band_size(TX_T, TX_WINDOW) * TX_DH,
+            4.0 * (4 + 8) * B * TX_T * TX_H * TX_DH)
+
+
+def tx_run(q, k, v, do):
+    """The kernels' (o, lse, dq, dk, dv)."""
+    o, lse = wa.window_attention_fwd(q, k, v, TX_WINDOW)
+    return (o, lse, *wa.window_attention_bwd(q, k, v, o, lse, do, TX_WINDOW))
+
+
+def tx_plain(q, k, v, do):
+    """The plain version's (o, lse, dq, dk, dv), through autograd."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o, lse = wa.window_attention_ref(*leaves, TX_WINDOW)
+    return (o.detach(), lse.detach(), *torch.autograd.grad(o, leaves, do))
+
+
+def tx_library_ms(q, k, v, do):
+    """The yardstick the port never calls: scaled_dot_product_attention
+    under the band's boolean mask, forward and backward, (B, H, T, dh)."""
+    i = torch.arange(TX_T, device=q.device)
+    band = (i[None, :] >= i[:, None] - TX_WINDOW[0]) & (i[None, :] <= i[:, None] + TX_WINDOW[1])
+    leaves = [x.transpose(1, 2).detach().clone().requires_grad_(True) for x in (q, k, v)]
+    dot = do.transpose(1, 2)
+
+    def run():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+        torch.autograd.grad(o, leaves, dot)
+    return cuda_ms(run, 5)
+
+
+def tx_kernels(dev):
+    """(a) the band kernels at the train cell's B = 32 held to their plain
+    version, two runs bit-equal; (b) their time beside the plain version's
+    and the library's, and the bound."""
+    q, k, v, do = tx_band_inputs(TX_B, SEED)
+    got, want = tx_run(q, k, v, do), tx_plain(q, k, v, do)
+    names = ("o", "lse", "dq", "dk", "dv")
+    errs = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in zip(names, got, want)}
+    for n, a, b in zip(names, got, want):
+        torch.testing.assert_close(a, b, rtol=TX_RTOL, atol=TX_ATOL * float(b.abs().max()),
+                                   msg=f"window attention {n}")
+    if not all(torch.equal(a, b) for a, b in zip(got, tx_run(q, k, v, do))):
+        raise AssertionError("window attention: two runs differ")
+    log(f"phase 17 (a): band kernels at B={TX_B}, T={TX_T}, H={TX_H}, dh={TX_DH}, "
+        f"window {TX_WINDOW}: max err / max |plain| {errs}; two runs bit-equal")
+    del got, want
+    fwd_ms = cuda_ms(lambda: wa.window_attention_fwd(q, k, v, TX_WINDOW), 10)
+    o, lse = wa.window_attention_fwd(q, k, v, TX_WINDOW)
+    bwd_ms = cuda_ms(lambda: wa.window_attention_bwd(q, k, v, o, lse, do, TX_WINDOW), 10)
+    plain_ms = cuda_ms(lambda: tx_plain(q, k, v, do), 3)
+    library_ms = tx_library_ms(q, k, v, do)
+    flops, nbytes = tx_band_work(TX_B)
+    bound_ms, bound_by = max((flops / PEAK_TF32_FLOPS * 1e3, "operations"),
+                             (nbytes / PEAK_BYTES * 1e3, "bytes"))
+    log(f"phase 17 (b): band kernels at B={TX_B}: forward {fwd_ms:.4f} ms, backward "
+        f"{bwd_ms:.4f} ms (dq + dkv); plain {plain_ms:.4f} ms; library (SDPA under the band "
+        f"mask, fwd + bwd) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); share "
+        f"{bound_ms / (fwd_ms + bwd_ms):.1%}")
+    return {"err": max(errs.values()), "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
+            "bwd_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def tx_ctc(dev):
+    """(c) B1/B2 at the cell's J = 2061 over T = 2048 frames against their
+    plain versions."""
+    B, T, S = TX_CTC
+    gen = np.random.default_rng(SEED)
+    logits = torch.from_numpy(gen.normal(size=(B, T, 5)).astype(np.float32))
+    labels = torch.from_numpy(gen.integers(1, 5, size=(B, S)).astype(np.int32))
+    lab = torch.from_numpy(gen.integers(S - 80, S + 1, size=(B,)).astype(np.int32))
+    ext, allow = _extend_labels(labels, 0)
+    lp = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous().to(dev)
+    skip = torch.where(allow, 0.0, NEG).to(dev)
+    lens, lab = torch.full((B,), T, dtype=torch.int32, device=dev), lab.to(dev)
+    cot = torch.ones((B,), device=dev)
+    got = ctc_fwd(lp, skip, lens, lab)
+    want = ctc_fwd_ref(lp, skip, lens, lab)
+    gg = ctc_bwd(lp, want[1], skip, lens, lab, want[0], cot)
+    gw = ctc_bwd_ref(lp, want[1], skip, lens, lab, want[0], cot)
+    torch.cuda.synchronize()
+    check_close("B1 at J=2061", got[0], want[0], 1e-5, 1e-5)
+    check_close("B2 at J=2061", gg[0], gw[0], 1e-4, 1e-6)
+    ms = (cuda_ms(lambda: ctc_fwd(lp, skip, lens, lab), 5),
+          cuda_ms(lambda: ctc_bwd(lp, want[1], skip, lens, lab, want[0], cot), 5))
+    log(f"phase 17 (c): B1 / B2 at B={B}, T={T}, J={2 * S + 1} (geometry "
+        f"{ctc_scan.ctc_geometry(2 * S + 1, 1, B, torch.cuda.get_device_properties(dev).multi_processor_count)}): "
+        f"{ms[0]:.4f} / {ms[1]:.4f} ms, held to the plain versions")
+    return ms
+
+
+def tx_chunks(B, seed):
+    """B raw Gaussian reads of 950-1030 bases at 12 samples a base, in
+    12,288-sample chunks (the train cell's traffic, at its mean rate)."""
+    gen = np.random.default_rng(seed)
+    table = np.load(DEFAULT_KMER_MODEL)
+    sig = np.zeros((B, 12288, 1), np.float32)
+    labels = np.zeros((B, 1030), np.int32)
+    lab_lens = gen.integers(950, 1031, size=B).astype(np.int32)
+    for b, n in enumerate(lab_lens):
+        seq = gen.integers(1, 5, size=int(n)).astype(np.int32)
+        ks = np.repeat(kmer_ids(seq, 2), 12)
+        sig[b, :len(ks), 0] = gen.normal(table["means"][ks], table["stdvs"][ks])
+        labels[b, :n] = seq
+    return {"signal": sig, "labels": labels, "label_lengths": lab_lens}
+
+
+def tx_model(dev):
+    """(d) Model("transformer-ctc") at Bonito sup v5's widths: the CTC
+    step (batch_standardize, AdamW on the multi-tensor kernels) for
+    TX_STEPS steps at B = TX_STEP_B chunks, and short reads through
+    Basecaller.__call__."""
+    cfg = json.loads(TX_CONFIG.read_text())
+    model = Model("transformer-ctc", cfg, device=dev).init(SEED)
+    net = model.model_ctc
+    n = sum(p.numel() for p in net.parameters())
+    if n != 76_623_557:
+        raise AssertionError(f"transformer parameters {n} != 76,623,557")
+    tx = build_optimizer("adamw", 2e-3, weight_decay=0.01)
+    step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
+    state = TrainState.create({k: v.detach().clone() for k, v in net.state_dict().items()}, tx)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tx_chunks(TX_STEP_B, SEED).items()}
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.launches = 0
+    for _ in range(TX_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["total_loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = wa.launches
+    if launches != 3 * net.depth * TX_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"transformer steps: band launches {launches}, losses {losses}")
+    log(f"phase 17 (d): Model('transformer-ctc') {n:,} parameters; {TX_STEPS} CTC steps at "
+        f"B={TX_STEP_B} x 12288 samples: losses {losses}, ms {[round(t, 1) for t in times]}, "
+        f"band launches {launches} (3 a layer a step), peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    model.model_ctc.load_state_dict(state.params)
+    reads = tx_chunks(4, SEED + 1)["signal"][:, :6000]
+    caller = Basecaller(model, beam_width=BEAM_WIDTH, logit_length_fn=model.output_length,
+                        device=dev)
+    before = wa.launches
+    seqs, scores = caller(reads)
+    if wa.launches - before != net.depth or len(seqs) != 4 or not all(map(math.isfinite, scores)):
+        raise AssertionError(f"transformer basecall: {wa.launches - before} band launches, "
+                             f"{len(seqs)} reads, scores {scores}")
+    log(f"phase 17 (d): Basecaller.__call__ on 4 reads of 6000 samples: lengths "
+        f"{[len(s) for s in seqs]}, scores {[round(s, 2) for s in scores]}")
+    try:   # a read longer than a chunk: the grid would count samples
+        caller.basecall_long(reads[0], chunk_len=4096)
+    except ValueError as e:
+        log(f"phase 17 (d): basecall_long refuses the transformer: {str(e)[:100]}...")
+    else:
+        raise AssertionError("basecall_long took the transformer")
+    return {"losses": losses, "step_ms": times}
+
+
+def tx_cli(dev):
+    """(e) the train entry point on configs/bonito_sup_v5.json, TX_CLI_STEPS
+    steps at B=4."""
+    cfg = json.loads(TX_CONFIG.read_text())
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tx_"))
+    cfg["training"].update(batch_size=4, save_dir=str(run_dir), max_iters=TX_CLI_STEPS,
+                           print_every=2, save_every=TX_CLI_STEPS)
+    try:
+        before = wa.launches
+        t0 = time.perf_counter()
+        result = cli.train_with_result(cfg, dev)
+        torch.cuda.synchronize()
+        if result["steps"] != TX_CLI_STEPS or not math.isfinite(result["train_loss"]):
+            raise AssertionError(f"transformer train entry point: {result}")
+        log(f"phase 17 (e): train on configs/bonito_sup_v5.json, {TX_CLI_STEPS} steps at B=4 "
+            f"in {time.perf_counter() - t0:.1f} s: {result}; band launches "
+            f"{wa.launches - before}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return result
+
+
+def run_transformer(dev, card):
+    """Phase 17: Bonito's transformer basecaller on the card."""
+    t0 = time.perf_counter()
+    dev = resolve_device(dev)
+    out = {"band": tx_kernels(dev), "ctc_ms": tx_ctc(dev)}
+    torch.cuda.empty_cache()
+    out["model"] = tx_model(dev)
+    torch.cuda.empty_cache()
+    out["cli"] = tx_cli(dev)
+    check_numerics("phase 17")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -5416,6 +5645,8 @@ def main() -> int:
     last = run_last_slice(dev, smi, train["step_ms"])
     # ---- 16. the guard and the optimizer as multi-tensor launches, both train trees
     mt = run_multi_tensor(dev, smi)
+    # ---- 17. Bonito's transformer: the band kernels, B1/B2 at J = 2061, train, basecall
+    tx = run_transformer(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -5552,6 +5783,13 @@ def main() -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by="bytes",
             library_ms=None, host_ms=k["host_ms"], staged_ms=k["staged_ms"],
             step_launches=mt["step_launches"]))
+    band = tx["band"]
+    kernels.append(dict(
+        name="window_attn", shape=f"B={TX_B}, T={TX_T}, H={TX_H}, dh={TX_DH}, {TX_WINDOW}",
+        route="cuda", source="wavenet_speech_tpu_torch/csrc/window_attention.cu",
+        replaces="none (the JAX package has no attention)", launches="3 a layer a step",
+        max_abs_err=band["err"], ms=band["ms"], plain_ms=band["plain_ms"],
+        bound_ms=band["bound_ms"], bound_by=band["bound_by"], library_ms=band["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ the card (``parallel.run_ranks``): the seq-sharded decode's chain of B6
 calls must give the bits of one call, and the gather of CUDA slices the
 slices laid end to end. The multi-tensor guard and rules repeat PyTorch's
 per-leaf arithmetic operation by operation (0 ulps; the guard's sums of
-squares in another order, rtol 1e-5)."""
+squares in another order, rtol 1e-5). The band attention's kernels run
+float32-accurate split products (three TF32 products) and sum in another order than
+the plain version's einsum and softmax: rtol 1e-4 and atol 1e-5 of the
+largest value (outputs, the log-sum-exp and gradients are sums over at
+most 256 keys or, for dk and dv, 256 queries)."""
 from unittest import mock
 
 import numpy as np
@@ -32,7 +36,7 @@ from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import (
     NEG_INF, beam_finalize, beam_search_kernel, beam_search_ref)
 from wavenet_speech_tpu_torch.ops.ctc import NEG, _extend_labels, _gather_ext
-from wavenet_speech_tpu_torch.ops import multi_tensor
+from wavenet_speech_tpu_torch.ops import multi_tensor, window_attention as wa
 from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
@@ -246,7 +250,8 @@ def _ctc_inputs(cuda, B, T, S, C, seed):
     (8, 40, 429, 5, True, None),             # a segment at J = 859
     (8, 4, 429, 5, True, None),              # ... wholly past tl_true (T - 5 < 0)
     (6, 488, 89, 5, False, [488] * 6),       # gauss_quality's J = 179: one block a sequence
-    (6, 488, 89, 5, False, [488, 470, 301, 488, 412, 450])])
+    (6, 488, 89, 5, False, [488, 470, 301, 488, 412, 450]),
+    (4, 2048, 1030, 5, False, None)])          # the transformer cell's J = 2061, T = 2048
 def test_ctc_kernels_match_plain(cuda, B, T, S, C, seg, lengths):
     lp, skip, lens, lab, cot = _ctc_inputs(cuda, B, T, S, C, T + S)
     if lengths is not None:
@@ -507,3 +512,50 @@ def test_multi_tensor_refuses_other_types(cuda):
             multi_tensor.scale(bad, 2.0)
     with pytest.raises(ValueError):
         multi_tensor.select(ok, [torch.ones(3, device=cuda)], [torch.ones(4, device=cuda)])
+
+
+def _band_inputs(cuda, B, T, H, dh, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, T, 3, H, dh), generator=g).to(cuda)
+    do = torch.randn((B, T, H, dh), generator=g).to(cuda)
+    # q and k as the model hands them (dense); v a view into qkv, as there
+    return qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2], do
+
+
+def _close(got, want, name):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale, msg=name)
+
+
+# the transformer's shape (B = 4 of its 32), T below the band and not a
+# multiple of the 64-row tile, a one-sided band
+@pytest.mark.parametrize("B,T,H,dh,window", [(4, 1024, 8, 64, (127, 128)),
+                                             (2, 100, 2, 64, (127, 128)),
+                                             (2, 333, 2, 64, (40, 0))])
+def test_window_attention_kernels_match_plain(cuda, B, T, H, dh, window):
+    q, k, v, do = _band_inputs(cuda, B, T, H, dh)
+    before = wa.launches
+    o, lse = wa.window_attention_fwd(q, k, v, window)
+    o_ref, lse_ref = wa.window_attention_ref(q, k, v, window)
+    _close(o, o_ref, "o")
+    _close(lse, lse_ref, "lse")
+    grads = wa.window_attention_bwd(q, k, v, o, lse, do, window)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o_ref = wa.window_attention_ref(*leaves, window)[0]
+    want = torch.autograd.grad(o_ref, leaves, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        _close(a, b, name)
+    assert wa.launches == before + 3
+
+
+def test_window_attention_is_bit_equal_across_runs(cuda):
+    """No atomics: two forwards and two backwards give the same bits."""
+    q, k, v, do = _band_inputs(cuda, 4, 1024, 8, 64, seed=1)
+    runs = []
+    for _ in range(2):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = wa.window_attention(*leaves, (127, 128))
+        runs.append([o.detach(), *torch.autograd.grad(o, leaves, do)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -36,7 +36,8 @@ from wavenet_speech_tpu_torch.data.pore_model import DEFAULT_CURRENTS, PoreModel
 from wavenet_speech_tpu_torch.decoding.ctc_beam_device import ctc_beam_search
 from wavenet_speech_tpu_torch.decoding.greedy import greedy_ctc_decode, labels2strings
 from wavenet_speech_tpu_torch.decoding.prefix_beam import beam_search_decode
-from wavenet_speech_tpu_torch.models import RawCTCNet, WaveNet, WaveNetClassifier
+from wavenet_speech_tpu_torch.models import (RawCTCNet, TransformerBasecaller, WaveNet,
+                                             WaveNetClassifier)
 from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.parallel.collectives import mean_var
 from wavenet_speech_tpu_torch.training.checkpoint import restore_params, save_params
@@ -112,19 +113,23 @@ class Model(nn.Module):
     facade: "wavenet-ctc" is WaveNet (``model_base``) followed by the
     WaveNetClassifier CTC head (``model_ctc``); "raw-ctcnet" is BatchNorm1d
     followed by RawCTCNet, with the JAX facade's defaults (facade.py:101-116:
-    2048 features, kernel 3, dilations 1..64 x 20). The config's
+    2048 features, kernel 3, dilations 1..64 x 20); "transformer-ctc", which
+    the JAX package lacks, is BatchNorm1d followed by Bonito's transformer
+    basecaller (``models.TransformerBasecaller``; the config's
+    "transformer" block, Bonito sup v5's widths by default). The config's
     ``use_pallas`` and ``remat`` keys do not apply: causal blocks always run
     the fused block, which is its kernel on the card.
 
     The chunked forwards of ``inference`` read the model's ``layers``,
     ``entry_kwidth`` / ``feature_kwidth`` and ``output_length``: those of
     the whole pair (BatchNorm is pointwise; a pooled classifier's
-    output_length is L // pool, which the chunk grid refuses)."""
+    output_length is L // pool, and the transformer's L over its stem's
+    stride of 6, which the chunk grid refuses)."""
 
     def __init__(self, model_type: str = "wavenet-ctc",
                  cfg: Optional[Dict[str, Any]] = None, *, device=None):
         super().__init__()
-        if model_type not in ("wavenet-ctc", "raw-ctcnet"):
+        if model_type not in ("wavenet-ctc", "raw-ctcnet", "transformer-ctc"):
             raise ValueError(f"unknown model_type {model_type!r}")
         self.model_type = model_type
         self.device = resolve_device(device)
@@ -137,6 +142,10 @@ class Model(nn.Module):
                                        softmax=False, causal=r["causal"],
                                        device=self.device)
             self.feature_kwidth = r["feature_kwidth"]
+        elif model_type == "transformer-ctc":
+            self.model_base = BatchNorm1d(1, device=self.device)
+            self.model_ctc = TransformerBasecaller(
+                **cfg.get("model", {}).get("transformer", {}), device=self.device)
         else:
             b, c = base_model_cfg(cfg), classifier_cfg(cfg)
             self.model_base = WaveNet(b["signal_dim"], b["entry_kwidth"],
@@ -152,9 +161,12 @@ class Model(nn.Module):
     def layers(self):
         """The dilated convs the chunk margin counts, as (c_in, c_out, kernel,
         dilation): RawCTCNet's stack (as JAX's _default_margin reads it), or
-        WaveNet's blocks, the classifier's input block and its blocks."""
+        WaveNet's blocks, the classifier's input block and its blocks; none
+        for the transformer."""
         if self.model_type == "raw-ctcnet":
             return self.model_ctc.layers
+        if self.model_type == "transformer-ctc":
+            return ()
         blk = self.model_ctc.input_block
         return self.model_base.layers + ((blk.in_channels, blk.out_channels,
                                           blk.kernel_width, blk.dilation),) + \
@@ -162,7 +174,7 @@ class Model(nn.Module):
 
     def output_length(self, L):
         """Logit frames of a signal of L samples."""
-        if self.model_type == "raw-ctcnet":
+        if self.model_type in ("raw-ctcnet", "transformer-ctc"):
             return self.model_ctc.output_length(L)
         return L // self.model_ctc.pool_kernel_size
 

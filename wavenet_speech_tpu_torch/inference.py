@@ -16,7 +16,8 @@ trimmed at interior boundaries, so the kept slices tile the monolithic
 forward's logits. The grid counts samples, so it needs a model whose
 frames follow its samples one to one (``output_length(L) = L + extra``):
 RawCTCNet, a causal WaveNet, a wavenet-ctc pair without pooling. A pooled
-head emits L // pool frames and is refused before any forward (the JAX
+head emits L // pool frames, the transformer about L / 3 (a stem of
+stride 6, upsampled 2x), and each is refused before any forward (the JAX
 package fails its stitching check there, inference.py:252). The margin is
 read from the model (``_default_margin``): hand ``Basecaller`` a model that
 carries its ``layers`` and ``output_length``, as ``facade.Model`` does.
@@ -215,15 +216,15 @@ def _check_chunk_len(chunk_len: int, margin: int) -> None:
 def output_extension(model, L: int) -> int:
     """output_length(L) - L, the frames the model adds to a read of L
     samples; ValueError for a model whose frames do not follow its samples
-    one to one (a pooled head)."""
+    one to one (a pooled head, the transformer's strided stem)."""
     extra = int(model.output_length(L)) - L
     if int(model.output_length(2 * L)) - 2 * L != extra:
         raise ValueError(
             f"chunked forwards need one logit frame a sample, but this model "
             f"emits output_length({L}) = {model.output_length(L)} "
-            f"frames (a pooled head: L // pool): the chunk grid counts samples, so "
-            f"its slices would not tile the logits (the JAX package fails its "
-            f"stitching check there, inference.py:252)")
+            f"frames (a pooled head: L // pool; a strided stem: L over its stride): "
+            f"the chunk grid counts samples, so its slices would not tile the logits "
+            f"(the JAX package fails its stitching check there, inference.py:252)")
     return extra
 
 

@@ -6,9 +6,10 @@ from wavenet_speech_tpu_torch.models.conv_decoder import AttnConvolutionalDecode
 from wavenet_speech_tpu_torch.models.raw_ctcnet import RawCTCNet
 from wavenet_speech_tpu_torch.models.rnn_decoder import RNNByteNetDecoder, StackedLSTMCell
 from wavenet_speech_tpu_torch.models.stack import SkipSumStack
+from wavenet_speech_tpu_torch.models.transformer import TransformerBasecaller
 from wavenet_speech_tpu_torch.models.wavenet import WaveNet
 from wavenet_speech_tpu_torch.models import fast_wavenet
 
 __all__ = ["AttnConvolutionalDecoder", "ByteNetDecoder", "MultiplicativeUnit", "RawCTCNet",
            "ResidualBlock", "ResidualMUBlock", "ResidualReLUBlock", "RNNByteNetDecoder",
-           "SkipSumStack", "StackedLSTMCell", "WaveNet", "WaveNetClassifier", "fast_wavenet"]
+           "SkipSumStack", "StackedLSTMCell", "TransformerBasecaller", "WaveNet", "WaveNetClassifier", "fast_wavenet"]

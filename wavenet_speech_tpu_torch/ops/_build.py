@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_block", "fused_block_bwd", "fused_block_bf16", "fused_block_bwd_bf16", "ctc",
-           "ctc_beam", "multi_tensor")
+           "ctc_beam", "multi_tensor", "window_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
