@@ -38,21 +38,25 @@ from a seed; B=8 one-hot reads of L=4505):
      the kernel step's gradients to at most SENS_FACTOR times the
      cuDNN-composite step's distance from the plain step's; holds the
      fused block's backward kernel (B5) at every dilation (two calls on
-     the same inputs must give the same bits) and the CTC
+     the same inputs must give the same bits), B4 and B5 at the
+     classifier's 19 centred blocks against the kernels' arithmetic, and
+     the CTC
      alpha and beta kernels (B1, B2) against their plain versions on the
      inputs the real backward feeds them (and the CTC against
-     F.ctc_loss); takes 3 steps counting launches (B4 30, B5 30, B1 1,
-     B2 1 a step) and holds their updates to the same cuDNN yardstick
-     against 3 steps on the plain versions; checks a small model's 3
+     F.ctc_loss); takes 3 steps counting launches (B4 49, B5 49: 30 causal
+     and 19 centred blocks; B1 1, B2 1 a step) and holds their updates to
+     the same cuDNN yardstick against 3 steps on the plain versions;
+     checks a small model's 3
      steps against the CPU's; and times the step.
   6. trains in bf16 (bench.py's default, compute_dtype=bf16) on the same
      model and batch: holds the bf16 forms of B4 and B5 against their plain
-     bf16 versions at every dilation, on the inputs the bf16 forward and
-     backward feed them; at the port's init and with res_w scaled, holds
+     bf16 versions at every dilation, and at the classifier's 19 centred
+     blocks against the bf16 kernels' arithmetic, on the inputs the bf16
+     forward and backward feed them; at the port's init and with res_w scaled, holds
      the bf16 kernel step's gradients to SENS_FACTOR times the bf16
      cuDNN-composite step's distance from the plain bf16 step's, and
      prints that gap by loss term and by part of the model; takes 3 bf16
-     steps counting launches (B4-bf16 30, B5-bf16 30, B1 1, B2 1, no
+     steps counting launches (B4-bf16 49, B5-bf16 49, B1 1, B2 1, no
      float32 block) with float32 params kept, holds their updates to the
      same yardstick; times the bf16 step and its kernels. At full depth
      these yardsticks cannot fail (the stack turns any flipped bf16
@@ -66,9 +70,10 @@ from a seed; B=8 one-hot reads of L=4505):
      20 steps with checkpoints every 10 (written on a thread), then again
      on the same run directory: it must resume at step 20 and count on to
      40. Checks the logs, the checkpoints, finite losses, and that B4-bf16
-     ran 15 times a train step and a validation forward and B5-bf16 15
-     times a train step; then holds both bf16 kernels against their plain
-     versions at the loop's 15 blocks and its shape (L=1090).
+     ran 31 times (15 causal blocks, 16 centred) a train step and a
+     validation forward and B5-bf16 31 times a train step; then holds both
+     bf16 kernels against the bf16 kernels' arithmetic at the loop's 31
+     blocks and its shape (L=1090).
   8. trains on 2 ranks of one torch.distributed world (run_ranks; gloo,
      both on this card, the P2P staged through host memory), the bench
      model and batch padded to L=4608, length-aware (T=1152, 1126 live
@@ -77,13 +82,15 @@ from a seed; B=8 one-hot reads of L=4505):
      within 1e-5 and every gradient leaf within 1e-4 (relative norm) of the
      single-device kernel step; (c) at full depth the loss within 1e-4 and
      the gradients within SENS_FACTOR x the cuDNN composite's distance; the
-     main path, 3 SP train steps, each launching B4 30, B5 30, B3-fwd 1 and
-     B3-bwd 1 times a rank and no whole-sequence B1/B2; (a) each rank's B3
+     main path, 3 SP train steps, each launching B4 49, B5 49 (30 causal
+     and 19 centred blocks, each on its [halo | shard | halo] window),
+     B3-fwd 1 and B3-bwd 1 times a rank and no whole-sequence B1/B2; (a) each rank's B3
      calls, with the carry they received and t_offset 0 or 576, against
      the plain loops, and the chained segments against B1/B2 on the whole
      sequence; (e) the step's time a rank, its halo exchanges, CTC carries
      and gradient all-reduce, B3's times. DP on a (data=2, seq=1) mesh:
-     (d) 3 steps, params bit-identical across ranks, updates within
+     (d) 3 steps (B4 and B5 at all 49 blocks), params bit-identical across
+     ranks, updates within
      SENS_FACTOR x the cuDNN composite's distance from 3 single-device
      steps. With 2 or more cards it runs again on NCCL, one rank a card.
   9. serves long reads: configs/gauss_quality.json's RawCTCNet at full width
@@ -92,7 +99,8 @@ from a seed; B=8 one-hot reads of L=4505):
      raw reads of 100,000 samples. (a) chunked_logits_batch (chunks of
      16384 samples, margin 312, groups of 8) within LONG_LOGIT_RTOL x
      max|logit| of the monolithic forward on 2 reads; (b) the main path,
-     Basecaller.basecall_long_batch: one B6 launch a beam chunk of 4096
+     Basecaller.basecall_long_batch: B4 once a block a group of chunks,
+     one B6 launch a beam chunk of 4096
      frames from the carried state (25 a call), no saturated window, the
      streamed basecalls equal one B6 call over the same log-probs; (c) the
      first 3 chunks of 1024 frames (B6's pool in shared memory), and 2
@@ -116,7 +124,8 @@ from a seed; B=8 one-hot reads of L=4505):
      CTC loss, float32). (a) the main path: cli.train_with_result for 20
      steps, then resumed on the same run directory to 40: logs,
      checkpoints, finite losses, and B1 once a train step and a validation
-     forward, B2 once a train step, no block kernel; (b) the checkpoint's
+     forward, B2 once a train step, B4 and B5 once a block a forward and a
+     backward; (b) the checkpoint's
      BatchNorm mean and var against the EMA recomputed in float64 from the
      stream rebuilt from the seed; (c) B1 and B2 at this shape (J=179, one
      block a sequence) against their plain loops on the real step's inputs;
@@ -141,13 +150,14 @@ from a seed; B=8 one-hot reads of L=4505):
      rebuilds tests/golden/realread_window.npz bit for bit from this
      script's copy of tools/make_synthetic_reads.make_read; (b) the
      real-read overfit of tests/test_realread_overfit.py in float32 (B4 and
-     B5 at C=32 held, then launched 3 times a step, B1/B2 once): it must
+     B5 at C=32 held, then launched 10 times a step, at 3 causal and 7
+     centred blocks, B1/B2 once): it must
      cross per-char CTC 0.3 and greedy-decode the bases exactly; on a read
      set of 8 reads x 4000 events, (c) configs/ecoli_hdf5_quality.json as
      it stands (15 + 15 blocks, bf16, 4 workers, K=5 steps a call on
      (5, 8, 1216) int32 levels) through train for 20 steps and a resume to
      40, launches, no StopIteration before max_iters, no producer thread
-     left; B4-bf16/B5-bf16 at its 15 blocks and B1/B2 at its length-aware
+     left; B4-bf16/B5-bf16 at its 31 blocks and B1/B2 at its length-aware
      CTC against their plain versions; (d) a levels step and its one-hot
      step equal to the bit; (e) the evaluate command (beam W=7): B6 once a
      batch, the printed loss and identity equal to their recomputation on
@@ -160,8 +170,9 @@ from a seed; B=8 one-hot reads of L=4505):
      raw-gauss B=6, signals of 567 samples, 569 logit frames, labels padded
      to 89; Adamax 2e-4, batch_standardize, float32. (a) the main path: 20
      steps into D1 in this process (B1 and B2 once a step, B1 and B6 once an
-     eval batch), 10 steps into D2, D2 resumed to 20 and --eval-only on D2,
-     each as a process of its own: step-20 checkpoints equal to the bit,
+     eval batch, B4 and B5 at its 101 centred blocks), 10 steps into D2,
+     D2 resumed to 20 and --eval-only on D2, each as a process of its own:
+     step-20 checkpoints equal to the bit,
      three equal result JSONs, max_to_keep's step directories; (b) the
      evaluation recomputed: the per-logit CTC on the plain CTC, B6's beams
      (T=569, S = 2 x the longest label) equal to the plain beam's, the
@@ -177,15 +188,17 @@ from a seed; B=8 one-hot reads of L=4505):
  13. runs the rest of the multi-device path on gloo ranks of this card.
      (a) the port's graft_entry.dryrun_multichip(8) on a (data 2, model 2,
      seq 2) mesh at JAX's sizes: the SP+TP joint step (64 channels, L=1024;
-     B4 and B5 at each of 10 causal blocks, B3), RawCTCNet under SP (B3),
-     the sequence-sharded CTC (B3), a DP+TP make_ctc_train_step step (B1,
-     B2) and both distributed decoders (B6), each held to one device at
-     JAX's tolerances (the joint step's gradients to the same step in
+     B4 and B5 at its 10 causal and 7 centred blocks, B3), RawCTCNet under
+     SP (B4 and B5 at its 11 centred blocks, B3),
+     the sequence-sharded CTC (B3), a DP+TP make_ctc_train_step step (B4
+     and B5 at its 7 centred blocks, B1, B2) and both distributed decoders
+     (B6), each held to one device at JAX's tolerances (the joint step's
+     gradients to the same step in
      float64, within graft_entry.JOINT_SENS x one device's distance), the
      launches of every check counted on every rank, every CTC and beam
      call held against its plain version on the inputs it was fed, B4 and
-     B5 against theirs at each causal block of the joint step on every
-     rank's halo window; the joint step once more with the plain blocks,
+     B5 against the kernels' arithmetic at each block of the joint step on
+     every rank's halo window; the joint step once more with the plain blocks,
      its distance from one device's plain run and from float64 printed
      beside the kernels'; on 2 ranks: (b) configs/gauss_quality.json's
      raw-ctcnet pair (BatchNorm1d + RawCTCNet, 512 features) through the
@@ -237,7 +250,7 @@ from a seed; B=8 one-hot reads of L=4505):
      bench model's float32 joint step (Adagrad 3e-5, res_w scaled as in 4):
      a single worker's first batch equal to the bit to its recomputation
      here from the worker's seed, two single-worker streams from one seed
-     equal, a warm step and 5 timed steps with 2 workers (B4 30, B5 30, B1
+     equal, a warm step and 5 timed steps with 2 workers (B4 49, B5 49, B1
      1, B2 1 launches a step; phase 5 holds the kernels at this shape),
      every loss finite, no worker alive after close(); the step's ms by
      utils.profiling.StepTimer, the fetches' wait, a worker's ms a batch
@@ -248,12 +261,14 @@ from a seed; B=8 one-hot reads of L=4505):
      learning rate and max_grad_norm (log scale), 4 trials of
      cli_objective on configs/gauss_quality.json at full width, each cut to
      10 steps with validation on 1 fixed batch at steps 5 and 10: every
-     vloss finite, B1 12 and B2 10 launches a trial (phase 10 holds them at
-     J=179), the suggestions equal to a CPU search fed the same values,
-     the best config re-run through train_with_result to the same vloss,
+     vloss finite, B1 12 and B2 10 launches a trial and B4 and B5 at its
+     26 centred blocks (phase 10 holds B1 and B2 at J=179), the
+     suggestions equal to a CPU search fed the same values, the best
+     config re-run through train_with_result to the same vloss,
      bit for bit; each trial's seconds. (c) the kmer experiments
      (examples.kmer_experiments) at main()'s defaults: mapping (nhid 512,
-     B=32; 500 steps, cut from 2000 for time), stay (128 features, 10 + 1 blocks, B=32, 160
+     B=32; 500 steps, cut from 2000 for time), stay (128 features, 10 + 1
+     blocks, B=32, 160
      frames, 300 steps), decode (128 channels, encoding 256, B=32, 100
      bases, 300 steps): the first loss within 1e-4 of the CPU's from the
      same init and batch, every loss finite, decode's final CE under 1.2;
@@ -284,6 +299,14 @@ from a seed; B=8 one-hot reads of L=4505):
      AdamW at the cell's B=32 chunks of 12,288 samples (3 band launches a
      layer a step), Basecaller.__call__ on 4 short reads (18 launches), and
      basecall_long's refusal; (e) the train entry point, 4 steps.
+ 18. runs centred blocks on B4/B5 (the tap origin; ops.fused_block): at
+     train.raw_ctcnet's block shapes (B=24, L=569; C=512 at K=2 d=1 and K=3
+     d=16, the 2048-wide input block) B4 and B5 against their plain
+     versions at phases 1 and 5's tolerances, two B5 calls bit-equal, and
+     their time against the composite's (cuDNN conv + cuBLAS 1x1s, forward
+     and backward by autograd); then 3 CTC train steps of that cell's
+     RawCTCNet (246.7 M parameters, Adamax, batch_standardize): B4, B5 and
+     launches_centred 101 a step, and the step's ms.
 
 Every failure raises, so the script exits non-zero; without CUDA (or
 without the package beside it) it exits non-zero before printing any
@@ -343,14 +366,15 @@ from wavenet_speech_tpu_torch.native import ctc_beam_search_native
 from wavenet_speech_tpu_torch.ops import _build, ctc_scan, multi_tensor
 from wavenet_speech_tpu_torch.ops import window_attention as wa
 from wavenet_speech_tpu_torch.ops.activations import gated_activation
-from wavenet_speech_tpu_torch.ops.conv import causal_conv1d
+from wavenet_speech_tpu_torch.ops.conv import autopad, causal_conv1d, noncausal_conv1d
 from wavenet_speech_tpu_torch.ops.ctc import (NEG, _extend_labels, _gather_ext,
                                               ctc_loss, ctc_loss_flat, ctc_loss_per_seq)
 from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd, ctc_fwd_ref
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
-                                                      fused_gated_block_ref)
+                                                      fused_gated_block_kernel_ref,
+                                                      fused_gated_block_ref, tap_origin)
 from wavenet_speech_tpu_torch.ops.norm import batch_standardize
 from wavenet_speech_tpu_torch import graft_entry
 from wavenet_speech_tpu_torch.parallel import (collectives, ctc_sharded, make_mesh,
@@ -407,6 +431,17 @@ S_LABELS, TRAIN_LR, TRAIN_STEPS = 429, 3e-5, 3
 # B*L = 36,040 frames, which the kernel adds in 16 slices of 2,253 frames
 # each summed in sequence, where cuBLAS sums in blocks.
 B5_WGRAD_ATOL = 1e-4
+# B5's dx at a centred block adds a float32 summation term: its sums (da =
+# do out_w^T over 2C products, then dx over K*2C + C) taken in another order
+# than the plain version's differ by at most 2 n 2^-24 times the sum of
+# their terms' magnitudes (n = 2C + K*2C + C, the worst case of two
+# recursive sums), and by 2^-16 of it more where a kernel splits dg into
+# two planes (bf16 hi + lo, or TF32). In phase 7's length-aware step the
+# last classifier blocks' dx cancels to ~1e-3 of those terms, where
+# B4_ATOL x max|dx| sits below float32's own reordering (the float32 B5
+# misses it there too); a tap read at a wrong row moves dx by about a
+# third of the terms, far outside it. The causal holds keep their bounds.
+DX_SPLIT = 2.0 ** -16
 # B1/B2: the plain loop's arithmetic in another order of the logaddexp's
 # exp/log1p implementations; as tests/test_pallas_ctc.py
 CTC_RTOL, CTC_ATOL, CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-5, 1e-5, 1e-4, 1e-6
@@ -633,14 +668,40 @@ def compare_beams(got, want, width):
     return live, err
 
 
-def cudnn_block(x, gw, gb, ow, ob, rw, rb, d):
-    """The fused block as a cuDNN conv + matmuls: a yardstick the port never
-    calls."""
-    xp = F.pad(x.transpose(1, 2), ((gw.shape[0] - 1) * d, 0))
+def cudnn_block(x, gw, gb, ow, ob, rw, rb, d, causal=True):
+    """The fused block as a cuDNN conv + matmuls, causal or centred (padded
+    as noncausal_conv1d pads): a yardstick the port never calls."""
+    span = (gw.shape[0] - 1) * d
+    left = span if causal else autopad(gw.shape[0], d)
+    xp = F.pad(x.transpose(1, 2), (left, span - left))
     g = F.conv1d(xp, gw.permute(2, 1, 0), gb, dilation=d).transpose(1, 2)
     C = rw.shape[1]
     o = torch.matmul(gated_activation(g[..., :C], g[..., C:]), ow) + ob
     return o[..., :C] + torch.matmul(x, rw) + rb, o[..., C:]
+
+
+def dx_sum_allowance(x, fw, d, dr, ds, causal):
+    """The centred holds' float32 summation term for B5's dx (DX_SPLIT's
+    comment), element by element: (2 n 2^-24 + DX_SPLIT) times |dresid|
+    |res_w|^T plus each tap's |dg| |gate_w[k]|^T, where |dg| takes |do|
+    |out_w|^T for |da| (which also bounds da's own rounding) times the gate
+    derivatives, on the widened operands."""
+    x, gw, gb, ow, _, rw, _ = (t.float() for t in (x, *fw))
+    dr, ds = dr.float(), ds.float()
+    K, C_in, C2 = gw.shape
+    L, C = x.shape[1], C2 // 2
+    h, R = (K - 1) * d, tap_origin(K, d, causal)
+    xp = F.pad(x, (0, 0, h - R, R))
+    g = gb + sum(xp[:, k * d: k * d + L] @ gw[k] for k in range(K))
+    th, sg = torch.tanh(g[..., :C]), torch.sigmoid(g[..., C:])
+    da = torch.cat([dr, ds], -1).abs() @ ow.abs().T
+    dg = torch.cat([da * sg * (1.0 - th * th), da * th.abs() * sg * (1.0 - sg)], -1)
+    dgp = F.pad(dg, (0, 0, R, h - R))
+    m = dr.abs() @ rw.abs().T
+    for k in range(K):
+        s = (K - 1 - k) * d
+        m = m + dgp[:, s: s + L] @ gw[k].abs().T
+    return (2 * (C2 + K * C2 + C) * 2.0 ** -24 + DX_SPLIT) * m
 
 
 def hold_b4(d, got, want):
@@ -788,15 +849,45 @@ def phase_beam(lp, lengths, S):
 
 def plain_versions():
     """Route the model and the beam through the kernels' plain versions."""
-    stack = causal_blocks_as(fused_gated_block_ref)
+    stack = blocks_as(fused_gated_block_ref)
     beam = mock.patch.object(ctc_beam_device, "beam_search_kernel",
                              ctc_beam_device.beam_search_ref)
     return stack, beam
 
 
-def causal_blocks_as(fn):
-    """Run the WaveNet's causal blocks through fn instead of the kernel."""
+def blocks_as(fn):
+    """Run the models' blocks, causal and centred, through fn instead of the
+    kernels."""
     return mock.patch.object(blocks, "fused_gated_block", fn)
+
+
+def block_launches(model, forwards, backwards=0, bf16=False):
+    """The fused blocks' launch counts (graft_entry.launches' keys, zeros
+    left out) when model runs `forwards` forward and `backwards` backward
+    passes: B4 and B5 (bf16: their bf16 forms) once a ResidualBlock each,
+    B4's launches of centred blocks counted again."""
+    blks = [m for m in model.modules() if isinstance(m, blocks.ResidualBlock)]
+    sfx = "_bf16" if bf16 else ""
+    counts = {f"fused_gated_block{sfx}": len(blks) * forwards,
+              f"fused_gated_block_bwd{sfx}": len(blks) * backwards,
+              "fused_gated_block_centred": sum(not b.causal for b in blks) * forwards}
+    return {k: v for k, v in counts.items() if v}
+
+
+def cfg_block_launches(cfg, *args, **kwargs):
+    """block_launches of the model a config builds (cli.build_from_config's
+    model type; on the meta device)."""
+    family = cfg.get("model", {}).get("type", "wavenet-ctc")
+    return block_launches(Model(family, cfg, device="meta"), *args, **kwargs)
+
+
+def add_counts(*counts):
+    """Launch counts summed key by key."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def report_sensitivity(label, logits, plain_logits, lengths, S):
@@ -897,9 +988,9 @@ def grad_sets(model, batch, grads):
     """The gradients on the kernels, on their plain versions and on the
     cuDNN composite (the last two with the plain CTC)."""
     g_k = grads(model, batch)
-    with causal_blocks_as(fused_gated_block_ref), ctc_plain():
+    with blocks_as(fused_gated_block_ref), ctc_plain():
         g_p = grads(model, batch)
-    with causal_blocks_as(cudnn_block), ctc_plain():
+    with blocks_as(cudnn_block), ctc_plain():
         g_c = grads(model, batch)
     return g_k, g_p, g_c
 
@@ -919,22 +1010,44 @@ def phase_grad_ratio(model, batch, label, grads=loss_grads):
     return g_k, g_p, g_c
 
 
-def capture_backward(model, batch):
-    """The plain step's forward and backward: each causal block's input and
-    output cotangents, and the CTC's extended log-probs and cotangent."""
-    rec = []
-
-    def recorder(x, gw, gb, ow, ob, rw, rb, d):
-        r, s = fused_gated_block_ref(x, gw, gb, ow, ob, rw, rb, d)
-        rec.append((x.detach(), [w.detach() for w in (gw, gb, ow, rw)], d, r, s))
+def record_blocks(rec):
+    """The models' blocks, causal and centred, through their plain version,
+    each block's input, weights, dilation, outputs and kind appended to
+    rec."""
+    def recorder(x, *w_and_d, causal=True):
+        r, s = fused_gated_block_ref(x, *w_and_d, causal)
+        rec.append((x.detach().contiguous(), [t.detach().contiguous() for t in w_and_d[:-1]],
+                    w_and_d[-1], r, s, causal))
         return r, s
 
-    with causal_blocks_as(recorder), ctc_plain():
+    return blocks_as(recorder)
+
+
+def recorded_blocks(rec, objective):
+    """Each block record_blocks recorded as (x, weights, dilation, dresid,
+    dskip, causal), the cotangents those of the scalar objective, made
+    contiguous as the autograd Function makes them (a pool's gradient is
+    strided)."""
+    outs = [t for *_, r, s, _ in rec for t in (r, s)]
+    cots = [t.contiguous() for t in torch.autograd.grad(objective, outs, allow_unused=True,
+                                                        materialize_grads=True)]
+    return [(x, fw, d, cots[2 * i], cots[2 * i + 1], causal)
+            for i, (x, fw, d, _, _, causal) in enumerate(rec)]
+
+
+def bwd_weights(fw):
+    """B5's weights (gate_w, gate_b, out_w, res_w) of the forward's six."""
+    return fw[0], fw[1], fw[2], fw[4]
+
+
+def capture_backward(model, batch):
+    """The plain step's forward and backward: each block's input, weights,
+    output cotangents and kind (recorded_blocks), and the CTC's extended
+    log-probs and cotangent."""
+    rec = []
+    with record_blocks(rec), ctc_plain():
         loss, logits = joint_loss(model, batch)
-        outs = [t for _, _, _, r, s in rec for t in (r, s)]
-        cots = torch.autograd.grad(loss, outs, allow_unused=True, materialize_grads=True)
-    blocks_io = [(x, w, d, cots[2 * i], cots[2 * i + 1])
-                 for i, (x, w, d, _, _) in enumerate(rec)]
+        blocks_io = recorded_blocks(rec, loss)
     logits = logits.detach()
     ext, allow = _extend_labels(batch["labels"], 0)
     lp_ext = _gather_ext(torch.log_softmax(logits, -1), ext).transpose(0, 1).contiguous()
@@ -956,16 +1069,17 @@ def cudnn_block_bwd(x, w, d, dr, ds):
 B5_OUTPUTS = ("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr")
 
 
-def hold_b5(d, got, want):
+def hold_b5(d, got, want, dx_extra=0.0):
     """B5's outputs within B4_RTOL |plain| + atol max|plain| (B4_ATOL for
-    dx, B5_WGRAD_ATOL for the weight and bias gradients); returns (max abs
-    errors, max|plain|s), one an output."""
+    dx, plus dx_extra, elementwise; B5_WGRAD_ATOL for the weight and bias
+    gradients); returns (max abs errors, max|plain|s), one an output."""
     errs, scales = [], []
     for name, g, p in zip(B5_OUTPUTS, got, want):
         scale = float(p.abs().max())
         err = float((g - p).abs().max())
         atol = B4_ATOL if name == "dx" else B5_WGRAD_ATOL
-        bad = int(((g - p).abs() > B4_RTOL * p.abs() + atol * scale).sum())
+        extra = dx_extra if name == "dx" else 0.0
+        bad = int(((g - p).abs() > B4_RTOL * p.abs() + atol * scale + extra).sum())
         if bad:
             raise AssertionError(f"B5 d={d} {name}: {bad} elements beyond tolerance; "
                                  f"max_abs_err {err:.3e}, max|plain| {scale:.3e}")
@@ -990,11 +1104,14 @@ def b5_work(x, gate_w):
 
 
 def phase_fused_block_bwd(blocks_io):
-    """B5 against its plain version at each of the 30 dilations, on the
-    inputs and cotangents of the real backward; a second call on the same
-    inputs must give the same bits in all seven outputs."""
+    """B5 against its plain version at each of the 30 causal dilations, on
+    the inputs and cotangents of the real backward; a second call on the
+    same inputs must give the same bits in all seven outputs. Then B4 and
+    B5 at the classifier's centred blocks (hold_centred)."""
     rows = []
-    for x, w, d, dr, ds in blocks_io:
+    causal_io = [io for io in blocks_io if io[5]]
+    for x, fw, d, dr, ds, _ in causal_io:
+        w = bwd_weights(fw)
         got = fused_gated_block_bwd(x, *w, dr, ds, d)
         again = fused_gated_block_bwd(x, *w, dr, ds, d)
         want = fused_gated_block_bwd_ref(x, *w, dr, ds, d)
@@ -1011,7 +1128,7 @@ def phase_fused_block_bwd(blocks_io):
             ms=cuda_ms(lambda: fused_gated_block_bwd(x, *w, dr, ds, d), 3),
             plain_ms=cuda_ms(lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d), 3),
             library_ms=cuda_ms(lib_fn, 3)))
-    flops, nbytes = b5_work(blocks_io[0][0], blocks_io[0][1][0])
+    flops, nbytes = b5_work(causal_io[0][0], causal_io[0][1][0])
     bound_ms, bound_by = bound_of(flops, nbytes, split=True)
     for r in rows:
         log(f"  B5 d={r['d']:3d} max_abs_err/max|plain| "
@@ -1033,6 +1150,7 @@ def phase_fused_block_bwd(blocks_io):
         f"library_ms={summary['library_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); {bound_shares(summary['ms'], flops)}; "
         f"mean over the 30 blocks")
+    hold_centred(blocks_io, "phase 5")
     return summary
 
 
@@ -1166,17 +1284,16 @@ def phase_train_steps(model, batch):
     tx = build_optimizer("adagrad", TRAIN_LR)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"))
     state0 = TrainState.create(param_tree(model.model_base, model.model_ctc), tx)
-    expect = {"fused_gated_block": len(WAVENET_DILS),
-              "fused_gated_block_bwd": len(WAVENET_DILS), "ctc_alpha": 1, "ctc_beta": 1}
+    expect = {**block_launches(model, 1, 1), "ctc_alpha": 1, "ctc_beta": 1}
     state, hist, launches = train_steps(step, state0, batch, expect)
     for i, m in enumerate(hist):
         log(f"train step {i + 1} (kernels): " + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
     log(f"train steps: launches per step {launches}")
-    with causal_blocks_as(fused_gated_block_ref), ctc_plain():
+    with blocks_as(fused_gated_block_ref), ctc_plain():
         pstate, phist, plaunch = train_steps(step, state0, batch)
     if plaunch:
         raise AssertionError(f"the plain steps launched kernels: {plaunch}")
-    with causal_blocks_as(cudnn_block), ctc_plain():
+    with blocks_as(cudnn_block), ctc_plain():
         cstate, _, _ = train_steps(step, state0, batch)
     p0, pk, pp, pc = (tree_leaves(s.params) for s in (state0, state, pstate, cstate))
     dp = lambda p: [a - b for a, b in zip(p, p0)]
@@ -1281,7 +1398,8 @@ def run_training(dev):
     phase_grad_ratio(model, batch, "scaled res_w")
     blocks_io, logits, lp_ext, skip = capture_backward(model, batch)
     b5 = phase_fused_block_bwd(blocks_io)
-    x, w, d, dr, ds = blocks_io[-1]   # d = 512
+    x, fw, d, dr, ds, _ = [io for io in blocks_io if io[5]][-1]   # d = 512
+    w = bwd_weights(fw)
     log_kernel_times(f"B5 at d={d}", lambda: fused_gated_block_bwd(x, *w, dr, ds, d))
     del blocks_io
     b1, b2 = phase_ctc(lp_ext, skip, logits, batch)
@@ -1311,25 +1429,59 @@ def step_grads(dtype, loss=None):
 def capture_blocks(model, batch, dtype, loss=None, logit_length_fn=None, mesh=None):
     """The plain forward and backward of the train step's objective, the
     models run in dtype through the step's cast (with a mesh, on this
-    rank's shard, every rank calling): each causal block's input, weights,
-    dilation and output cotangents."""
+    rank's shard, every rank calling): each block's input, weights,
+    dilation, output cotangents and kind (recorded_blocks)."""
     rec = []
-
-    def recorder(x, *w_and_d):
-        r, s = fused_gated_block_ref(x, *w_and_d)
-        rec.append((x.detach(), [t.detach() for t in w_and_d[:-1]], w_and_d[-1], r, s))
-        return r, s
-
     params = model.params()
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    with causal_blocks_as(recorder), ctc_plain():
+    with record_blocks(rec), ctc_plain():
         total, _, _ = _forward_losses(model.model_base, model.model_ctc,
                                       loss or JointLoss("joint"), params, batch,
                                       logit_length_fn, dtype, mesh)
-        outs = [t for *_, r, s in rec for t in (r, s)]
-        cots = torch.autograd.grad(total, outs, allow_unused=True, materialize_grads=True)
-    return [(x, w, d, cots[2 * i], cots[2 * i + 1]) for i, (x, w, d, _, _) in enumerate(rec)]
+        return recorded_blocks(rec, total)
+
+
+def hold_f32_block(x, fw, d, dr, ds, causal=True):
+    """B4 and B5 (float32) against the kernels' arithmetic in plain PyTorch
+    (fused_gated_block_kernel_ref, fused_gated_block_bwd_ref) on one
+    block's inputs and cotangents, within phases 1 and 5's tolerances.
+    Returns (B4's max abs error, B5's per output)."""
+    w, where = bwd_weights(fw), d if causal else f"{d} centred"
+    b4_err, _ = hold_b4(where, fused_gated_block(x, *fw, d, causal),
+                        fused_gated_block_kernel_ref(x, *fw, d, causal))
+    b5_errs, _ = hold_b5(where, fused_gated_block_bwd(x, *w, dr, ds, d, causal),
+                         fused_gated_block_bwd_ref(x, *w, dr, ds, d, causal),
+                         0.0 if causal else dx_sum_allowance(x, fw, d, dr, ds, causal))
+    return b4_err, b5_errs
+
+
+def hold_blocks(blocks_io):
+    """B4 and B5, or their bf16 forms on bf16 blocks, at each captured
+    block (recorded_blocks), causal or centred (hold_f32_block,
+    check_bf16_block); returns their max abs errors."""
+    f_err = b_err = 0.0
+    with torch.no_grad():
+        for io in blocks_io:
+            f, b = (check_bf16_block if io[0].dtype == BF16 else hold_f32_block)(*io)
+            f_err, b_err = max(f_err, f), max(b_err, *b)
+    return f_err, b_err
+
+
+def hold_centred(blocks_io, label):
+    """hold_blocks at the centred blocks of blocks_io, logged; there must be
+    some."""
+    centred = [io for io in blocks_io if not io[5]]
+    if not centred:
+        raise AssertionError(f"{label}: no centred block was captured")
+    f_err, b_err = hold_blocks(centred)
+    x, C = centred[0][0], centred[0][1][4].shape[1]
+    form = "-bf16" if x.dtype == BF16 else ""
+    log(f"{label}: B4{form} and B5{form} at the {len(centred)} centred blocks (B={x.shape[0]}, "
+        f"L={x.shape[1]}, C={C}, d={sorted({io[2] for io in centred})}) against the kernels' "
+        f"arithmetic within {'phase 6' if form else 'phases 1 and 5'}'s tolerances; "
+        f"max_abs_err B4 {f_err:.3e}, B5 {b_err:.3e}")
+    return f_err, b_err
 
 
 def check_bf16(name, d, got, want, extra):
@@ -1343,23 +1495,27 @@ def check_bf16(name, d, got, want, extra):
     return float(diff.max())
 
 
-def check_bf16_block(x, fw, d, dr, ds):
-    """B4-bf16 and B5-bf16 against their plain bf16 versions on one block's
-    inputs and cotangents: bf16 out, each output within the bf16 tolerance.
-    Returns (B4's max abs error, B5's per output)."""
+def check_bf16_block(x, fw, d, dr, ds, causal=True):
+    """B4-bf16 and B5-bf16 against the bf16 kernels' arithmetic in plain
+    PyTorch (fused_gated_block_kernel_ref, fused_gated_block_bwd_ref) on one
+    block's inputs and cotangents: bf16 out, each output within the bf16
+    tolerance. Returns (B4's max abs error, B5's per output)."""
     gw, gb, ow, ob, rw, rb = fw
-    got, want = fused_gated_block(x, *fw, d), fused_gated_block_ref(x, *fw, d)
+    where = d if causal else f"{d} centred"
+    got = fused_gated_block(x, *fw, d, causal=causal)
+    want = fused_gated_block_kernel_ref(x, *fw, d, causal)
     if any(t.dtype != BF16 for t in got):
-        raise AssertionError(f"B4-bf16 d={d}: outputs {[t.dtype for t in got]}")
+        raise AssertionError(f"B4-bf16 d={where}: outputs {[t.dtype for t in got]}")
     f_extra = B4_ATOL * max(float(w.abs().max()) for w in want) + \
         2 * 2.0 ** -8 * float(ow.abs().max())
-    f_err = max(check_bf16("B4-bf16", d, g, w, f_extra) for g, w in zip(got, want))
-    gotb = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d)
-    wantb = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d)
+    f_err = max(check_bf16("B4-bf16", where, g, w, f_extra) for g, w in zip(got, want))
+    gotb = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d, causal)
+    wantb = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d, causal)
     if any(t.dtype != BF16 for t in gotb):
-        raise AssertionError(f"B5-bf16 d={d}: outputs {[t.dtype for t in gotb]}")
-    b_errs = [check_bf16(f"B5-bf16 {n}", d, g, w, (B4_ATOL if n == "dx" else B5_WGRAD_ATOL)
-                         * float(w.float().abs().max()))
+        raise AssertionError(f"B5-bf16 d={where}: outputs {[t.dtype for t in gotb]}")
+    dx_extra = 0.0 if causal else dx_sum_allowance(x, fw, d, dr, ds, causal)
+    b_errs = [check_bf16(f"B5-bf16 {n}", where, g, w, (B4_ATOL if n == "dx" else B5_WGRAD_ATOL)
+                         * float(w.float().abs().max()) + (dx_extra if n == "dx" else 0.0))
               for n, g, w in zip(B5_OUTPUTS, gotb, wantb)]
     return f_err, b_errs
 
@@ -1368,9 +1524,11 @@ def phase_bf16_kernels(blocks_io):
     """B4-bf16 and B5-bf16 against their plain bf16 versions at each of the
     30 dilations, on the inputs and cotangents of the bf16 forward and
     backward; their times beside the plain versions' and the bf16 cuDNN
-    composite's (forward, and its autograd backward)."""
+    composite's (forward, and its autograd backward); then both at the
+    classifier's centred blocks (hold_centred)."""
     rows = []
-    for x, (gw, gb, ow, ob, rw, rb), d, dr, ds in blocks_io:
+    causal_io = [io for io in blocks_io if io[5]]
+    for x, (gw, gb, ow, ob, rw, rb), d, dr, ds, _ in causal_io:
         fw, bw = (gw, gb, ow, ob, rw, rb), (gw, gb, ow, rw)
         f_err, b_errs = check_bf16_block(x, fw, d, dr, ds)
         lib_bwd = cudnn_block_bwd(x, bw, d, dr, ds)
@@ -1383,8 +1541,8 @@ def phase_bf16_kernels(blocks_io):
             b_ms=cuda_ms(lambda: fused_gated_block_bwd(x, *bw, dr, ds, d), 3),
             b_plain_ms=cuda_ms(lambda: fused_gated_block_bwd_ref(x, *bw, dr, ds, d), 3),
             b_lib_ms=cuda_ms(lib_bwd, 3)))
-    Bx, Lx, C_in = blocks_io[0][0].shape
-    K, _, C2 = blocks_io[0][1][0].shape
+    Bx, Lx, C_in = causal_io[0][0].shape
+    K, _, C2 = causal_io[0][1][0].shape
     C = C2 // 2
     n = Bx * Lx
     w_in = K * C_in * C2 + C2 + C * C2 + C2 + C_in * C + C
@@ -1423,32 +1581,31 @@ def phase_bf16_kernels(blocks_io):
         log(f"  bf16 d={r['d']:3d} B4 err {r['f_err']:.2e} ms {r['f_ms']:.4f} | B5 err "
             + " ".join(f"{k}={e:.2e}" for k, e in zip(B5_OUTPUTS, r["b_errs"]))
             + f" ms {r['b_ms']:.4f}")
+    hold_centred(blocks_io, "phase 6")
     return out
 
 
 def bf16_steps(model, batch):
     """3 bf16 joint steps on the kernels (each step launches B4-bf16 and
-    B5-bf16 once a causal block, B1 and B2 once, no float32 block; params
+    B5-bf16 once a block, B1 and B2 once, no float32 block; params
     and optimizer state stay float32), then on the plain versions and on
     the bf16 cuDNN composite from the same state. Returns (step, tx, the
     kernels' state, metrics, launches, the updates dp = p_3 - p_0 of the
     three runs)."""
-    n = len(model.model_base.stack.blocks)
     tx = build_optimizer("adagrad", TRAIN_LR)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
                                  compute_dtype=BF16)
     state0 = TrainState.create(model.params(), tx)
-    expect = {"fused_gated_block_bf16": n, "fused_gated_block_bwd_bf16": n,
-              "ctc_alpha": 1, "ctc_beta": 1}
+    expect = {**block_launches(model, 1, 1, bf16=True), "ctc_alpha": 1, "ctc_beta": 1}
     state, hist, launches = train_steps(step, state0, batch, expect)
     if any(t.dtype != torch.float32 for t in tree_leaves((state.params, state.opt_state))
            if t.is_floating_point()):
         raise AssertionError("bf16 steps: params or optimizer state not float32")
-    with causal_blocks_as(fused_gated_block_ref), ctc_plain():
+    with blocks_as(fused_gated_block_ref), ctc_plain():
         pstate, _, plaunch = train_steps(step, state0, batch)
     if plaunch:
         raise AssertionError(f"the plain bf16 steps launched kernels: {plaunch}")
-    with causal_blocks_as(cudnn_block), ctc_plain():
+    with blocks_as(cudnn_block), ctc_plain():
         cstate, _, _ = train_steps(step, state0, batch)
     p0 = tree_leaves(state0.params)
     updates = [[a - b for a, b in zip(tree_leaves(s.params), p0)]
@@ -1605,7 +1762,6 @@ def phase_train_cli(dev):
     cfg["training"].update(datatype="pore", min_sample_length=90, max_sample_length=110,
                            upsampling=10, save_dir=str(run_dir), max_iters=20,
                            print_every=10, save_every=10, async_checkpoint=True)
-    n_blocks = len(cfg["model"]["base"]["dilations"])
     counts = None
     try:
         for run, (start, end) in enumerate(((0, 20), (20, 40)), 1):
@@ -1621,9 +1777,9 @@ def phase_train_cli(dev):
             steps, valid = end - start, len(lines)     # one validation forward a print
             messages = (run_dir / "logs" / "messages.log").read_text()
             ckpts = sorted(int(p.name) for p in (run_dir / "ckpts").iterdir() if p.name.isdigit())
-            want = {"fused_gated_block_bf16": n_blocks * (steps + valid),
-                    "fused_gated_block_bwd_bf16": n_blocks * steps,
-                    "fused_gated_block": 0, "fused_gated_block_bwd": 0}
+            want = {"fused_gated_block": 0, "fused_gated_block_bwd": 0,
+                    "fused_gated_block_centred": 0,
+                    **cfg_block_launches(cfg, steps + valid, steps, bf16=True)}
             got = {k: run_counts[k] for k in want}
             losses = [v for l in lines for v in (l["train_loss"], l["valid_loss"])]
             problems = [what for what, bad in (
@@ -1657,13 +1813,12 @@ def check_cli_kernels(model, batch, t):
     (the config's loss, length-aware logit lengths) at its own shape."""
     fn = model.output_length if t.get("length_aware_ctc") else None
     blocks_io = capture_blocks(model, batch, BF16, JointLoss(t.get("loss", "joint")), fn)
-    f_err = b_err = 0.0
-    for x, fw, d, dr, ds in blocks_io:
-        f, b = check_bf16_block(x, fw, d, dr, ds)
-        f_err, b_err = max(f_err, f), max(b_err, *b)
+    f_err, b_err = hold_blocks(blocks_io)
     x = blocks_io[0][0]
     log(f"train entry point: B4-bf16 and B5-bf16 at its {len(blocks_io)} blocks "
-        f"(B={x.shape[0]}, L={x.shape[1]}, d={sorted({io[2] for io in blocks_io})}) within "
+        f"({sum(not io[5] for io in blocks_io)} centred; B={x.shape[0]}, "
+        f"L={sorted({io[0].shape[1] for io in blocks_io})}, "
+        f"d={sorted({io[2] for io in blocks_io})}) within "
         f"{BF16_STEP} x |plain| + the float32 term; max_abs_err B4 {f_err:.3e}, B5 {b_err:.3e}")
 
 
@@ -1827,27 +1982,25 @@ def check_ctc(rec, mesh, name):
 
 
 def check_blocks(blocks_io, mesh):
-    """B4 and B5 against their plain versions at each causal block of the
-    objective on this rank (SP: the [halo | shard] window; DP: the rank's
-    reads), within phase 1's and phase 5's tolerances; their times (one
-    rank at a time, mean over the blocks) and bounds (the same mean)."""
+    """B4 and B5 against the kernels' arithmetic at each block, causal and
+    centred, of the objective on this rank (SP: the [halo | shard | halo]
+    window; DP: the rank's reads), within phase 1's and phase 5's
+    tolerances (hold_f32_block); their times (one rank at a time, mean over
+    the blocks) and bounds (the same mean)."""
     b4_err, b5_err = 0.0, [0.0] * len(B5_OUTPUTS)
-    for x, fw, d, dr, ds in blocks_io:
-        w = (fw[0], fw[1], fw[2], fw[4])   # gate_w, gate_b, out_w, res_w
-        b4_err = max(b4_err, hold_b4(d, fused_gated_block(x, *fw, d),
-                                     fused_gated_block_ref(x, *fw, d))[0])
-        errs, _ = hold_b5(d, fused_gated_block_bwd(x, *w, dr, ds, d),
-                          fused_gated_block_bwd_ref(x, *w, dr, ds, d))
-        b5_err = [max(a, b) for a, b in zip(b5_err, errs)]
+    for io in blocks_io:
+        f, errs = hold_f32_block(*io)
+        b4_err, b5_err = max(b4_err, f), [max(a, b) for a, b in zip(b5_err, errs)]
 
     def run():
         ms = {"b4": 0.0, "b4_plain": 0.0, "b5": 0.0, "b5_plain": 0.0}
-        for x, fw, d, dr, ds in blocks_io:
-            w = (fw[0], fw[1], fw[2], fw[4])
-            ms["b4"] += cuda_ms(lambda: fused_gated_block(x, *fw, d), 2)
-            ms["b4_plain"] += cuda_ms(lambda: fused_gated_block_ref(x, *fw, d), 2)
-            ms["b5"] += cuda_ms(lambda: fused_gated_block_bwd(x, *w, dr, ds, d), 2)
-            ms["b5_plain"] += cuda_ms(lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d), 2)
+        for x, fw, d, dr, ds, causal in blocks_io:
+            w = bwd_weights(fw)
+            ms["b4"] += cuda_ms(lambda: fused_gated_block(x, *fw, d, causal), 2)
+            ms["b4_plain"] += cuda_ms(lambda: fused_gated_block_kernel_ref(x, *fw, d, causal), 2)
+            ms["b5"] += cuda_ms(lambda: fused_gated_block_bwd(x, *w, dr, ds, d, causal), 2)
+            ms["b5_plain"] += cuda_ms(
+                lambda: fused_gated_block_bwd_ref(x, *w, dr, ds, d, causal), 2)
         return {k: v / len(blocks_io) for k, v in ms.items()}
 
     out = one_rank_at_a_time(mesh, run)
@@ -1857,13 +2010,15 @@ def check_blocks(blocks_io, mesh):
         out[f"{key}_bound"] = bound_of(ops, nbytes, split=True)
     x = blocks_io[0][0]
     out.update(b4_err=b4_err, b5_err=b5_err, n=len(blocks_io), B=x.shape[0],
-               L=sorted({io[0].shape[1] for io in blocks_io}))
+               L=sorted({io[0].shape[1] for io in blocks_io}),
+               centred=sum(not io[5] for io in blocks_io))
     return out
 
 
 def log_blocks(label, r):
     """One rank's check_blocks result."""
-    log(f"{label}: B4 and B5 at its {r['n']} causal blocks (B={r['B']}, L={r['L'][0]}.."
+    log(f"{label}: B4 and B5 at its {r['n']} blocks ({r['centred']} centred; B={r['B']}, "
+        f"L={r['L'][0]}.."
         f"{r['L'][-1]}) within rtol {B4_RTOL}, atol {B4_ATOL} / {B5_WGRAD_ATOL} x max|plain|; "
         f"max_abs_err B4 {r['b4_err']:.3e}, B5 "
         + " ".join(f"{k}={e:.2e}" for k, e in zip(B5_OUTPUTS, r["b5_err"]))
@@ -1908,9 +2063,8 @@ def sp_rank(device):
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
                                  logit_length_fn=logit_frames, mesh=mesh)
     state = TrainState.create(model.params(), tx)
-    n = len(WAVENET_DILS)
-    expect = {"fused_gated_block": n, "fused_gated_block_bwd": n,
-              "ctc_alpha_segment": 1, "ctc_beta_segment": 1}
+    expect = {**block_launches(model, 1, 1), "ctc_alpha_segment": 1,
+              "ctc_beta_segment": 1}
     with record_ctc() as rec:
         state, hist, launches = train_steps(step, state, batch, expect)
     out.update(launches=launches, losses=[h["total_loss"] for h in hist])
@@ -1941,8 +2095,7 @@ def sp_rank(device):
                                  logit_length_fn=logit_frames, mesh=dmesh)
     with record_ctc() as rec:
         state, hist, dp_launches = train_steps(step, TrainState.create(model.params(), tx),
-                                               batch, {"fused_gated_block": n,
-                                                       "fused_gated_block_bwd": n,
+                                               batch, {**block_launches(model, 1, 1),
                                                        "ctc_alpha": 1, "ctc_beta": 1})
     out["dp"] = dict(mesh=repr(dmesh), params=tree_leaves(state.params), launches=dp_launches,
                      losses=[h["total_loss"] for h in hist], blocks=blocks_dp,
@@ -1969,7 +2122,7 @@ def sp_references(dev):
     ref = {"cut": objective_grads(sp_model(dev, SP_CUT), batch)}
     model = sp_model(dev)
     ref["full"] = objective_grads(model, batch)
-    with causal_blocks_as(cudnn_block), ctc_plain():
+    with blocks_as(cudnn_block), ctc_plain():
         ref["full_cudnn"] = objective_grads(model, batch)
     tx = build_optimizer("adagrad", TRAIN_LR)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"),
@@ -1977,7 +2130,7 @@ def sp_references(dev):
     state0 = TrainState.create(model.params(), tx)
     ref["p0"] = tree_leaves(state0.params)
     ref["dp"] = tree_leaves(train_steps(step, state0, batch)[0].params)
-    with causal_blocks_as(cudnn_block), ctc_plain():
+    with blocks_as(cudnn_block), ctc_plain():
         ref["dp_cudnn"] = tree_leaves(train_steps(step, state0, batch)[0].params)
     return ref
 
@@ -2363,7 +2516,8 @@ def run_long_read(dev, card):
         reset_counts()
         seqs, scores = caller.basecall_long_batch(reads[..., None], **long_kw)
         launches = {k: v for k, v in read_counts().items() if v}
-        want_launches = {"ctc_beam": math.ceil(T / LONG_BEAM_FRAMES)}
+        want_launches = {"ctc_beam": math.ceil(T / LONG_BEAM_FRAMES), **block_launches(
+            model, math.ceil(LONG_B * len(starts) / LONG_CHUNK_BATCH))}
         if launches != want_launches or caller.saturated_chunks:
             raise AssertionError(f"(b) launches {launches} (expected {want_launches}), "
                                  f"saturated chunks {caller.saturated_chunks}")
@@ -2513,8 +2667,9 @@ def gauss_cfg(run_dir):
 def gauss_train_runs(cfg, run_dir, dev):
     """(a) cli.train_with_result twice on one run directory: 20 steps, then
     resumed at 20 to 40. Each train step launches B1 and B2 once, each
-    validation forward B1 once, no block kernel. Returns the first run's
-    launches and its loop samples/s."""
+    validation forward B1 once, and B4 and B5 once a centred block a forward
+    and a backward. Returns the first run's launches and its loop
+    samples/s."""
     counts, rates = None, []
     for run, (start, end) in enumerate(((0, GAUSS_STEPS), (GAUSS_STEPS, 2 * GAUSS_STEPS)), 1):
         logged = len(read_jsonl(run_dir / "logs" / "metrics.jsonl")) if run > 1 else 0
@@ -2529,7 +2684,8 @@ def gauss_train_runs(cfg, run_dir, dev):
         steps, valid = end - start, len(lines)
         messages = (run_dir / "logs" / "messages.log").read_text()
         ckpts = sorted(int(p.name) for p in (run_dir / "ckpts").iterdir() if p.name.isdigit())
-        want = {"ctc_alpha": steps + valid, "ctc_beta": steps}
+        want = {"ctc_alpha": steps + valid, "ctc_beta": steps,
+                **cfg_block_launches(cfg, steps + valid, steps)}
         losses = [v for l in lines for v in (l["train_loss"], l["valid_loss"])]
         problems = [what for what, bad in (
             (f"steps {result['steps']} != {end}", result["steps"] != end),
@@ -2606,9 +2762,9 @@ def ctc_step_run(net, params, batch, plain):
 
     with (ctc_plain() if plain else contextlib.nullcontext()), \
             mock.patch.object(trainer, "_guarded_update", record):
-        state, hist, launches = train_steps(step, state, batch,
-                                            None if plain else {"ctc_alpha": 1, "ctc_beta": 1})
-    if plain and launches:
+        state, hist, launches = train_steps(step, state, batch, None if plain else {
+            "ctc_alpha": 1, "ctc_beta": 1, **block_launches(net, 1, 1)})
+    if plain and {k for k in launches if k.startswith("ctc")}:
         raise AssertionError(f"(d) the plain CTC steps launched {launches}")
     return state, hist, launches, grads[0]
 
@@ -2796,7 +2952,9 @@ def phase_evaluate(cfg, run_dir, model, state, eval_fn):
         path = run_dir / f"evaluate_{decoder}.json"
         path.write_text(json.dumps(c))
         n, loss, ident, launches, line = run_evaluate(path, decoder)
-        want_launches = {"ctc_alpha": GAUSS_EVAL_BATCHES}
+        # B4: the eval step's forward and the decoder's, a batch
+        want_launches = {"ctc_alpha": GAUSS_EVAL_BATCHES,
+                         **block_launches(model, 2 * GAUSS_EVAL_BATCHES)}
         if decoder == "beam":
             want_launches["ctc_beam"] = GAUSS_EVAL_BATCHES
         want_ident = f"{np.mean(ids):.3f}"
@@ -3072,21 +3230,6 @@ def rebuild_fixture(tmp):
     return want
 
 
-def hold_f32_blocks(blocks_io):
-    """B4 and B5 (float32) against their plain versions on each captured
-    block's inputs and cotangents (phases 1 and 5's tolerances); returns
-    their max abs errors."""
-    f_err = b_err = 0.0
-    with torch.no_grad():
-        for x, (gw, gb, ow, ob, rw, rb), d, dr, ds in blocks_io:
-            fw = (gw, gb, ow, ob, rw, rb)
-            err, _ = hold_b4(d, fused_gated_block(x, *fw, d), fused_gated_block_ref(x, *fw, d))
-            errs, _ = hold_b5(d, fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d),
-                              fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d))
-            f_err, b_err = max(f_err, err), max(b_err, *errs)
-    return f_err, b_err
-
-
 def overfit_realread(dev, fx):
     """(b) tests/test_realread_overfit.py on the card, float32: the joint
     WaveNet-CTC (256 levels, WaveNet (32, 32, 2, d) for d = 1, 2, 4, a
@@ -3094,14 +3237,15 @@ def overfit_realread(dev, fx):
     batch, one-hot in the step; at most 2500 steps, stopping below per-char
     CTC 0.02. It must cross 0.3 and greedy-decode the read's bases exactly.
     B4 and B5 (float32) launch 3 times a step, B1 and B2 once; both block
-    kernels are held at C = 32 on the first step's inputs first."""
+    kernels are held at C = 32 on the first step's inputs first (the causal
+    blocks; B4 and B5 launch at the classifier's 7 centred blocks too)."""
     layers = [[OVERFIT_C, OVERFIT_C, 2, d] for d in (1, 2, 4)]
     cfg = {"model": {"base": {"signal_dim": LEVELS, "entry_kwidth": 2, "layers": layers},
                      "classifier": {"num_labels": LABELS, "layers": layers * 2,
                                     "out_dim": OVERFIT_C, "downsample": 1}}}
     model = Model("wavenet-ctc", cfg, device=dev).init(SEED)
     batch = {k: torch.from_numpy(fx[k].astype(np.int32)).to(dev) for k in FIELDS}
-    f_err, b_err = hold_f32_blocks(capture_blocks(model, batch, None))
+    f_err, b_err = hold_blocks(capture_blocks(model, batch, None))
     tx = build_optimizer("adam", OVERFIT_LR)
     step = make_joint_train_step(model.model_base, model.model_ctc, tx, JointLoss("joint"))
     state = TrainState.create(model.params(), tx)
@@ -3120,9 +3264,7 @@ def overfit_realread(dev, fx):
     secs = time.perf_counter() - t0
     steps = i + 1
     launches = {k: v for k, v in read_counts().items() if v}
-    n_blocks = len(layers)
-    want = {"fused_gated_block": n_blocks * steps, "fused_gated_block_bwd": n_blocks * steps,
-            "ctc_alpha": steps, "ctc_beta": steps}
+    want = {**block_launches(model, steps, steps), "ctc_alpha": steps, "ctc_beta": steps}
     model.load_params(state.params)
     with torch.no_grad():
         decoded = greedy_ctc_decode(model(F.one_hot(batch["signal"].long(), LEVELS).float()))
@@ -3134,7 +3276,7 @@ def overfit_realread(dev, fx):
         (f"launches {launches} != {want}", launches != want)) if bad]
     if problems:
         raise AssertionError("(b) real-read overfit: " + "; ".join(problems))
-    log(f"(b) real-read overfit on the card (float32, {n_blocks} + {2 * n_blocks} blocks at "
+    log(f"(b) real-read overfit on the card (float32, {len(layers)} + {2 * len(layers)} blocks at "
         f"C={OVERFIT_C}, Adam {OVERFIT_LR}, B={batch['signal'].shape[0]} L={frames}): "
         f"per-char CTC below {OVERFIT_CROSS} at step {crossed}, {steps} steps to "
         f"{per_char:.4f} (< {OVERFIT_STOP}); greedy decode equals the read's bases; "
@@ -3182,14 +3324,14 @@ def recording_fetch(rec):
 def ecoli_train_runs(cfg, run_dir, dev):
     """(c) cli.train_with_result on the config twice on one run directory:
     20 steps, then resumed at 20 to 40. K=5 steps a call on (5, 8, 1216)
-    int32 levels, B4-bf16 15 times a train step and a validation forward
-    (4 fixed batches a print), B5-bf16 15 times a train step, B1 and B2
+    int32 levels, B4-bf16 31 times (15 causal blocks, 16 centred) a train
+    step and a validation forward (4 fixed batches a print), B5-bf16 31
+    times a train step, B1 and B2
     once a step (B1 once a validation forward); no StopIteration before
     max_iters, and no producer thread alive after either run. Returns the
     first run's launches, the runs' loop samples/s and the train fetches'
     waits."""
     t = cfg["training"]
-    n_blocks = len(cfg["model"]["base"]["dilations"])
     stacked = ((t["steps_per_call"], t["batch_size"], t["pad_to"]), "int32")
     counts, rates, waits = None, [], []
     to_device = cli.batch_to_device
@@ -3211,8 +3353,7 @@ def ecoli_train_runs(cfg, run_dir, dev):
         counts = counts or run_counts
         lines = read_jsonl(run_dir / "logs" / "metrics.jsonl")[logged:]
         steps, valid = end - start, len(lines) * t["fixed_valid_batches"]
-        want = {"fused_gated_block_bf16": n_blocks * (steps + valid),
-                "fused_gated_block_bwd_bf16": n_blocks * steps,
+        want = {**cfg_block_launches(cfg, steps + valid, steps, bf16=True),
                 "ctc_alpha": steps + valid, "ctc_beta": steps}
         train = [(b, ms) for s, b, ms in fetched if s == "train"]
         served = [i for i, (b, _) in enumerate(train) if b is not None]
@@ -3315,9 +3456,8 @@ def ecoli_evaluate(cfg, run_dir, dev):
         if b6_ms is None:
             b6_ms = cuda_ms(lambda: beam_search_kernel(lp, lengths, **kw), 5)
             shape = f"B={lp.shape[0]} T={lp.shape[1]} C={lp.shape[2]} W={BEAM_WIDTH}"
-    n_blocks = len(cfg["model"]["base"]["dilations"])
     n = ECOLI_EVAL_BATCHES
-    want_launches = {"fused_gated_block_bf16": n_blocks * n, "fused_gated_block": n_blocks * n,
+    want_launches = {**add_counts(block_launches(model, n, bf16=True), block_launches(model, n)),
                      "ctc_alpha": n, "ctc_beam": n}
     want_loss, want_ident = float(np.mean(losses)), f"{np.mean(ids):.3f}"
     problems = [what for what, bad in (
@@ -3512,7 +3652,10 @@ def quality_train_runs(tmp):
     secs = {"D1 (20 steps, this process)": time.perf_counter() - t0}
     launches = {k: v for k, v in read_counts().items() if v}
     want = {"ctc_alpha": QUALITY_STEPS + QUALITY_EVAL_BATCHES, "ctc_beta": QUALITY_STEPS,
-            "ctc_beam": QUALITY_EVAL_BATCHES}
+            "ctc_beam": QUALITY_EVAL_BATCHES, **block_launches(
+                gaussian_eval.build_model(float(QUALITY_WIDTH[1]), nhid=int(QUALITY_WIDTH[3]),
+                                          device="meta"),
+                QUALITY_STEPS + QUALITY_EVAL_BATCHES, QUALITY_STEPS)}
     if launches != want:
         raise AssertionError(f"(a) D1: launches {launches}, expected {want}")
     _, secs["D2 (10 steps)"] = run_module(
@@ -3819,17 +3962,22 @@ def run_quality(dev, card):
 
 DRYRUN_RANKS = 8
 # (a): the launches of each dry-run check on every rank (graft_entry's
-# module docstring): the SP+TP joint step's 10 causal blocks, B3 for every
-# sequence-sharded CTC, B1/B2 for the DP+TP step, B6 once a decode
+# module docstring): B4/B5 at the SP+TP joint step's 10 causal and 7 centred
+# blocks and at RawCTCNet's 11 centred ones under SP, B3 for every
+# sequence-sharded CTC, B4/B5 at the 7 centred blocks of the DP+TP step's
+# flagship and B1/B2, B6 once a decode
 DRYRUN_LAUNCHES = {
-    "joint": {"fused_gated_block": 10, "fused_gated_block_bwd": 10,
-              "ctc_alpha_segment": 1, "ctc_beta_segment": 1},
-    "raw": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1},
+    "joint": {"fused_gated_block": 17, "fused_gated_block_bwd": 17,
+              "fused_gated_block_centred": 7, "ctc_alpha_segment": 1, "ctc_beta_segment": 1},
+    "raw": {"fused_gated_block": 11, "fused_gated_block_bwd": 11,
+            "fused_gated_block_centred": 11, "ctc_alpha_segment": 1, "ctc_beta_segment": 1},
     "ctc": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1},
-    "step": {"ctc_alpha": 1, "ctc_beta": 1},
+    "step": {"fused_gated_block": 7, "fused_gated_block_bwd": 7,
+             "fused_gated_block_centred": 7, "ctc_alpha": 1, "ctc_beta": 1},
     "decode": {"ctc_beam": 1}, "seq_decode": {"ctc_beam": 1}}
 MULTI_RANKS = 2
-# (b)-(d): a rank's launches a step (the pair, TP) or a decode
+# (b)-(d): a rank's launches a step (the pair, TP) or a decode, besides the
+# fused blocks' (every block of the pair: block_launches)
 PAIR_LAUNCHES = {"data": {"ctc_alpha": 1, "ctc_beta": 1},
                  "seq": {"ctc_alpha_segment": 1, "ctc_beta_segment": 1}}
 PAIR_HELD = {"data": {"ctc_alpha", "ctc_beta"}, "seq": {"B3-fwd", "B3-bwd"}}
@@ -3933,9 +4081,9 @@ def joint_shim(inp, mesh):
 def dryrun13_rank(shape, inp, device):
     """(a) One rank of graft_entry.dryrun_multichip (module-level: run_ranks
     spawns it): its checks with every CTC and beam call recorded, then held
-    against their plain versions; B4 and B5 against theirs at each causal
-    block of the joint check on this rank's halo window; the joint check
-    again with the plain blocks."""
+    against their plain versions; B4 and B5 against the kernels' arithmetic
+    at each block of the joint check on this rank's halo window; the joint
+    check again with the plain blocks."""
     with record_ctc() as rec, record_beam([]) as beams:
         out = graft_entry.dryrun_rank(shape, inp, device)
     check_numerics(f"dry-run rank {dist.get_rank()}")
@@ -3950,7 +4098,7 @@ def dryrun13_rank(shape, inp, device):
     out["held"] = merge_held(held, {"fused_gated_block": {"err": b["b4_err"], "n": b["n"]},
                                     "fused_gated_block_bwd": {"err": max(b["b5_err"]),
                                                               "n": b["n"]}})
-    with causal_blocks_as(fused_gated_block_ref):
+    with blocks_as(fused_gated_block_ref):
         out["joint_plain"] = graft_entry._joint(mesh.device, inp, mesh)
     return out
 
@@ -3989,7 +4137,7 @@ def run_dryrun(dev, card):
     if set(held) != {"fused_gated_block", "fused_gated_block_bwd", "ctc_alpha", "ctc_beta",
                      "B3-fwd", "B3-bwd", "ctc_beam"}:
         raise AssertionError(f"(a) kernels held {sorted(held)}")
-    with causal_blocks_as(fused_gated_block_ref):
+    with blocks_as(fused_gated_block_ref):
         one_plain = graft_entry._joint(dev, graft_entry.inputs(res["shape"]))
     exact = refs["joint64"]["grads"]
     kern = [joint_distances(r["joint"]["grads"], refs["joint"]["grads"], exact) for r in ranks]
@@ -4064,9 +4212,10 @@ def pair_on_mesh(dev, shape, batch_g):
                              mesh)
         held = hold_recorded(rec, [], "(b)")
         del rec
-        # the multi-tensor kernels take float32 alone: the float64 steps run
-        # the guard's and the optimizer's plain versions
-        with plain_multi_tensor():
+        # the multi-tensor and block kernels take float32 (or bf16) alone: the
+        # float64 steps run the guard's, the optimizer's and the blocks' plain
+        # versions
+        with plain_multi_tensor(), blocks_as(fused_gated_block_ref):
             f64 = pair_steps(model, tree_map(lambda t: t.double(), params),
                              dict(batch_g, signal=batch_g["signal"].astype(np.float64)))
         names = [n for part in ("base", "ctc") for n in params[part]]
@@ -4090,7 +4239,10 @@ def pair_on_mesh(dev, shape, batch_g):
                    grads=all(torch.equal(a, b) for g, w in zip(got["grads"], one["grads"])
                              for a, b in zip(g, w)),
                    stats=all(torch.equal(a, b) for a, b in zip(got["stats"], one["stats"])))
-        out[depth] = dict(steps=steps, stats=stats, bit=bit, launches=got["launches"], held=held,
+        want = {**PAIR_LAUNCHES["seq" if shape[1] > 1 else "data"],
+                **block_launches(model, 1, 1)}
+        out[depth] = dict(steps=steps, stats=stats, bit=bit, launches=got["launches"],
+                          want_launches=want, held=held,
                           one_launches=one["launches"], losses=got["losses"],
                           one_losses=one["losses"], running=[float(t) for t in got["stats"]])
         del model, one, got, f64
@@ -4145,6 +4297,7 @@ def tp_on_mesh(dev, ref_path, batch_g):
     n_sharded = sum(s is not None for s in specs.values())
     return dict(mesh=repr(mesh), losses=[h["ctc_loss"] for h in history],
                 gnorms=[h["grad_norm"] for h in history], launches=first, bit=bit, err=err,
+                want_launches={**TP_LAUNCHES, **block_launches(net, 1, 1)},
                 update_err=update_err,
                 peak=peak, state_bytes=tp_state_bytes(state), step_ms=sum(ms[1:]) / len(ms[1:]),
                 gather_ms=sum(gather), gather_mb=4 * sum(
@@ -4278,9 +4431,9 @@ def run_multi(dev, card):
                     + f"; launches a step {q['launches']} (one device "
                     f"{q['one_launches']}); losses {q['losses']} (one device {q['one_losses']}); "
                     f"running mean, var {q['running']}")
-                if q["launches"] != PAIR_LAUNCHES[name]:
+                if q["launches"] != q["want_launches"]:
                     raise AssertionError(f"(b) {name} launches {q['launches']}, expected "
-                                         f"{PAIR_LAUNCHES[name]}")
+                                         f"{q['want_launches']}")
                 if q["stats"] > PAIR_STATS_RTOL:
                     raise AssertionError(f"(b) {name} {depth}: running statistics differ")
                 if set(q["held"]) != PAIR_HELD[name]:
@@ -4311,8 +4464,9 @@ def run_multi(dev, card):
         if not (t["losses"][0] == ref["losses"][0] and loss_rel <= PAIR_LOSS_RTOL
                 and t["update_err"] <= STEP_PARAM_RTOL):
             raise AssertionError("(c) the TP steps differ from the single-device steps")
-        if t["launches"] != TP_LAUNCHES:
-            raise AssertionError(f"(c) TP launches {t['launches']}")
+        if t["launches"] != t["want_launches"]:
+            raise AssertionError(f"(c) TP launches {t['launches']}, expected "
+                                 f"{t['want_launches']}")
     # (d) the decoders, bit for bit against one B6 call
     for r, out in enumerate(ranks):
         d = out["decode"]
@@ -4442,7 +4596,8 @@ def pretrain_phase(dev, path, card):
         runs.append((state, losses, counts, secs))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     (s1, l1, launches, secs), (s2, l2, counts2, _) = runs
-    want = {"ctc_alpha": PRETRAIN_STEPS, "ctc_beta": PRETRAIN_STEPS}
+    want = {"ctc_alpha": PRETRAIN_STEPS, "ctc_beta": PRETRAIN_STEPS,
+            **block_launches(encoder, PRETRAIN_STEPS, PRETRAIN_STEPS)}
     if launches != want or counts2 != want:
         raise AssertionError(f"(a) pretrain_ctc launched {launches} / {counts2}, not {want}")
     bit = l1 == l2 and all(torch.equal(a, b) for a, b in
@@ -4702,8 +4857,9 @@ NPZ_SHARDS, NPZ_READS = 4, 16              # (a): shards of reads, all of L samp
 NPZ_BASES = (400, 430)                     # label reads of 400-429 bases: S <= 429
 NPZ_WORKERS, NPZ_TIMED = 2, 5              # 5 timed steps after a warm one, 1 traced
 NPZ_TIMEOUT = 120.0                        # a spawned worker's start, generously
-NPZ_STEP_LAUNCHES = {"fused_gated_block": len(WAVENET_DILS),
-                     "fused_gated_block_bwd": len(WAVENET_DILS), "ctc_alpha": 1,
+NPZ_STEP_LAUNCHES = {"fused_gated_block": len(WAVENET_DILS) + len(CLASSIFIER_DILS) + 1,
+                     "fused_gated_block_bwd": len(WAVENET_DILS) + len(CLASSIFIER_DILS) + 1,
+                     "fused_gated_block_centred": len(CLASSIFIER_DILS) + 1, "ctc_alpha": 1,
                      "ctc_beta": 1}
 # the CUDA kernels of B4, B5, B1, B2 in the float32 step (csrc/*.cu)
 TRACE_KERNELS = {"B4": ("fused_gated_block_kernel",),
@@ -4909,6 +5065,8 @@ def hyperparameter_search(dev, card):
     base = json.loads(LONG_CONFIG.read_text())
     base["training"].update(SEARCH_CUTS)
     objective = cli_objective(base, device=dev)
+    want = {**SEARCH_LAUNCHES, **cfg_block_launches(base, SEARCH_CUTS["max_iters"] + 2,
+                                                      SEARCH_CUTS["max_iters"])}
     counts, secs = [], []
 
     def counted(values):
@@ -4929,8 +5087,8 @@ def hyperparameter_search(dev, card):
             f"launches {c}")
         if not math.isfinite(y):
             raise AssertionError(f"(b) trial {i}: vloss {y}")
-        if c != SEARCH_LAUNCHES:
-            raise AssertionError(f"(b) trial {i}: launches {c}, expected {SEARCH_LAUNCHES}")
+        if c != want:
+            raise AssertionError(f"(b) trial {i}: launches {c}, expected {want}")
     cpu = BayesOpt(SEARCH_SPACE, seed=SEED)
     for i, (values, y) in enumerate(best["trials"]):
         if cpu.suggest() != values:
@@ -4944,10 +5102,10 @@ def hyperparameter_search(dev, card):
     log(f"(b) BayesOpt({list(SEARCH_SPACE)}, seed={SEED}) over cli_objective on "
         f"configs/gauss_quality.json at full width (cut: {SEARCH_CUTS}): {SEARCH_TRIALS} "
         f"trials in {total:.2f} s (host clock), best vloss {best['value']!r}, equal to the "
-        f"bit when its config is re-run; suggestions equal to a CPU search's; B1/B2 "
-        f"launches a trial {SEARCH_LAUNCHES} (10 steps, 2 validations; phase 10 holds B1/B2 "
+        f"bit when its config is re-run; suggestions equal to a CPU search's; "
+        f"launches a trial {want} (10 steps, 2 validations; phase 10 holds B1/B2 "
         f"at J=179); card {card}")
-    return dict(launches=SEARCH_LAUNCHES, secs=secs, total=total)
+    return dict(launches=want, secs=secs, total=total)
 
 
 def kmer_runs(dev, card):
@@ -5479,6 +5637,125 @@ def run_transformer(dev, card):
     return out
 
 
+# ---- 18. centred blocks on B4/B5 ---------------------------------------------------
+
+# train.raw_ctcnet (h100_bench/configs/raw_ctcnet_eval.json): B=24 reads of 567
+# samples, 569 frames after the featurizer; its blocks (C_in, C, K, d): one of
+# 512 at K=2 d=1, the widest-dilated one at K=3 d=16, and the 2048-wide input
+# block; the model: 100 blocks of 512 (K 2, 3 over d 1...16, 10 cycles)
+RAW_B, RAW_L, RAW_LABELS, RAW_FEATURES = 24, 569, 89, 2048
+CENTRED_BLOCKS = ((512, 512, 2, 1), (512, 512, 3, 16), (2048, 512, 2, 1))
+RAW_LAYERS = [(512, 512, k, d) for k in (2, 3) for d in [1, 2, 4, 8, 16] * 10]
+
+
+def centred_operands(dev, seed, C_in, C, K):
+    """A block's operands at the models' init scale (kernels of variance
+    1/fan_in) and cotangents, B=RAW_B, L=RAW_L."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(dev)
+    k = lambda fan_in: 3.0 ** 0.5 / fan_in ** 0.5
+    x = u(RAW_B, RAW_L, C_in)
+    fw = (u(K, C_in, 2 * C) * k(K * C_in), u(2 * C) * 0.1, u(C, 2 * C) * k(C),
+          u(2 * C) * 0.1, u(C_in, C) * k(C_in), u(C) * 0.1)
+    return x, fw, u(RAW_B, RAW_L, C), u(RAW_B, RAW_L, C)
+
+
+def composite_centred(x, fw, d, dr, ds):
+    """The centred block as ResidualBlock ran it before B4/B5 took it (cuDNN's
+    conv through noncausal_conv1d, the gated activation, cuBLAS's 1x1s), its
+    forward and backward by autograd: returns a function that runs both."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, *fw)]
+
+    def run():
+        x, gw, gb, ow, ob, rw, rb = leaves
+        C = rw.shape[1]
+        g = noncausal_conv1d(x, gw, gb, dilation=d)
+        o = gated_activation(g[..., :C], g[..., C:]) @ ow + ob
+        return torch.autograd.grad((o[..., :C] + (x @ rw + rb), o[..., C:]), leaves, (dr, ds))
+    return run
+
+
+def phase_centred_blocks(dev):
+    """B4 and B5 with the centred tap origin at train.raw_ctcnet's block
+    shapes against the kernels' arithmetic (hold_f32_block; two B5 calls
+    bit-equal), and their time against the composite's."""
+    rows = []
+    for i, (C_in, C, K, d) in enumerate(CENTRED_BLOCKS):
+        x, fw, dr, ds = centred_operands(dev, SEED + 18 + i, C_in, C, K)
+        gw, gb, ow, _, rw, _ = fw
+        with torch.inference_mode():
+            b4_err, b5_errs = hold_f32_block(x, fw, d, dr, ds, False)
+        bwd = lambda: fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+        got, again = bwd(), bwd()
+        for name, a, b in zip(B5_OUTPUTS, got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"centred B5 d={d} {name}: two calls differ")
+        with torch.inference_mode():
+            f_ms = cuda_ms(lambda: fused_gated_block(x, *fw, d, causal=False), 5)
+        b_ms = cuda_ms(bwd, 5)
+        comp_ms = cuda_ms(composite_centred(x, fw, d, dr, ds), 5)
+        flops = b4_work(x, gw)[0] + b5_work(x, gw)[0]
+        rows.append(dict(C_in=C_in, K=K, d=d, b4_err=b4_err, b5_err=max(b5_errs), f_ms=f_ms,
+                         b_ms=b_ms, composite_ms=comp_ms))
+        log(f"  centred block B={RAW_B} L={RAW_L} C_in={C_in} C={C} K={K} d={d}: B4 "
+            f"{f_ms:.4f} + B5 {b_ms:.4f} = {f_ms + b_ms:.4f} ms ({flops / (f_ms + b_ms) / 1e9:.1f} "
+            f"TFLOP/s on {flops / 1e9:.1f} GFLOP), composite forward + backward "
+            f"{comp_ms:.4f} ms ({comp_ms / (f_ms + b_ms):.2f}x); max_abs_err B4 {b4_err:.3e}, "
+            f"B5 {max(b5_errs):.3e}")
+        log_kernel_times(f"  centred B4 + B5 at K={K} d={d} C_in={C_in}",
+                         lambda: (fused_gated_block(x, *fw, d, causal=False), bwd()))
+    return rows
+
+
+def raw_ctcnet_step(dev):
+    """One CTC train step of train.raw_ctcnet's model (246.7 M parameters,
+    Adamax, batch_standardize) at B=24, L=567 on the kernels: the launches a
+    step (B4 and B5 once a block, every one centred), then the step's time."""
+    net = RawCTCNet(RAW_FEATURES, 3, LABELS, RAW_LAYERS, RAW_LAYERS[0][1], input_kernel_size=2,
+                    softmax=False, causal=False, device=dev)
+    net.reset_parameters(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():   # the residual stream's scale kept, as in phase 4
+        for blk in [net.input_block, *net.stack.blocks]:
+            blk.res_w.mul_(0.5 ** 0.5)
+    tx = build_optimizer("adamax", 2e-4)
+    step = make_ctc_train_step(net, tx, preprocess=batch_standardize)
+    state = TrainState.create({k: v.detach().clone() for k, v in net.state_dict().items()}, tx)
+    g = torch.Generator().manual_seed(SEED + 18)
+    batch = {"signal": torch.randn(RAW_B, RAW_L - 2, 1, generator=g).to(dev) * 20 + 90,
+             "labels": torch.randint(1, LABELS, (RAW_B, RAW_LABELS), generator=g,
+                                     dtype=torch.int32).to(dev),
+             "label_lengths": torch.randint(RAW_LABELS - 9, RAW_LABELS + 1, (RAW_B,), generator=g,
+                                            dtype=torch.int32).to(dev)}
+    n = len(RAW_LAYERS) + 1
+    state, _, launches = train_steps(step, state, batch, {
+        "fused_gated_block": n, "fused_gated_block_bwd": n, "fused_gated_block_centred": n,
+        "ctc_alpha": 1, "ctc_beta": 1})
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batch)
+    step_ms = cuda_ms(one, 3)
+    log(f"raw_ctcnet train step (B={RAW_B}, L={RAW_L - 2}, {n} centred blocks): launches a "
+        f"step {launches}; {step_ms:.2f} ms a "
+        f"step ({RAW_B * (RAW_L - 2) / step_ms * 1e3:.0f} samples/s, padded); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(launches=launches, step_ms=step_ms)
+
+
+def run_centred_blocks(dev, card):
+    """Phase 18: centred blocks on B4/B5 at train.raw_ctcnet's shapes."""
+    t0 = time.perf_counter()
+    dev = resolve_device(dev)
+    out = {"blocks": phase_centred_blocks(dev)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["step"] = raw_ctcnet_step(dev)
+    torch.cuda.empty_cache()
+    check_numerics("phase 18")
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -5528,9 +5805,9 @@ def main() -> int:
         # ---- 3. at the port's init the untrained stack amplifies f32
         # rounding: the kernel forward must stay as close to the plain one as
         # the same forward on cuDNN does
-        with causal_blocks_as(fused_gated_block_ref):
+        with blocks_as(fused_gated_block_ref):
             plain_logits = model(x)
-        with causal_blocks_as(cudnn_block):
+        with blocks_as(cudnn_block):
             cudnn_logits = model(x)
         k_diff = report_sensitivity("port init, kernel forward", logits,
                                     plain_logits, lengths, S)
@@ -5551,20 +5828,21 @@ def main() -> int:
 
     with torch.inference_mode():
         # ---- 4. end to end through the Basecaller: the main path
-        fused_gated_block.launches = beam_search_kernel.launches = 0
+        reset_counts()
         seqs, scores = caller(reads)
-        launches = {"fused_gated_block": fused_gated_block.launches,
-                    "ctc_beam": beam_search_kernel.launches}
+        launches = {k: v for k, v in read_counts().items() if v}
         log(f"main path (beam W={BEAM_WIDTH}, res_w scaled by 1/sqrt(2)): "
             f"launches {launches}")
-        if launches != {"fused_gated_block": len(WAVENET_DILS), "ctc_beam": 1}:
-            raise AssertionError(f"main path launches {launches}: expected "
-                                 f"{len(WAVENET_DILS)} fused blocks and 1 beam")
-        fused_gated_block.launches = beam_search_kernel.launches = 0
+        want = {**block_launches(model, 1), "ctc_beam": 1}
+        if launches != want:
+            raise AssertionError(f"main path launches {launches}: expected {want} (B4 at "
+                                 f"{len(WAVENET_DILS)} causal and {len(CLASSIFIER_DILS) + 1} "
+                                 f"centred blocks, 1 beam)")
+        reset_counts()
         gseqs, _ = greedy(reads)
-        if (fused_gated_block.launches, beam_search_kernel.launches) != (len(WAVENET_DILS), 0):
-            raise AssertionError("greedy path launches "
-                                 f"{fused_gated_block.launches}, {beam_search_kernel.launches}")
+        glaunches = {k: v for k, v in read_counts().items() if v}
+        if glaunches != block_launches(model, 1):
+            raise AssertionError(f"greedy path launches {glaunches}")
         if not all(s and set(s) <= set("AGCT") for s in seqs + gseqs):
             raise AssertionError("empty or non-ACGT basecalls")
 
@@ -5647,6 +5925,8 @@ def main() -> int:
     mt = run_multi_tensor(dev, smi)
     # ---- 17. Bonito's transformer: the band kernels, B1/B2 at J = 2061, train, basecall
     tx = run_transformer(dev, smi)
+    # ---- 18. centred blocks on B4/B5: train.raw_ctcnet's blocks and step
+    centred = run_centred_blocks(dev, smi)
     check_numerics("after every phase")
     log(f"total {time.perf_counter() - t_start:.1f} s; card (nvidia-smi name, power.limit):")
     log(smi)
@@ -5658,7 +5938,8 @@ def main() -> int:
              launches=launches["fused_gated_block"], max_abs_err=b4["err"],
              ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
              bound_by=b4["bound_by"], library_ms=b4["library_ms"],
-             long_read_launches=long_read["b4_launches"]),
+             long_read_launches=long_read["b4_launches"], centred_blocks=centred["blocks"],
+             raw_ctcnet_step=centred["step"]),
         dict(name="ctc_beam", route="cuda",
              source="wavenet_speech_tpu_torch/csrc/ctc_beam.cu",
              replaces="wavenet_speech_tpu/ops/pallas/attic/beam.py:62",
@@ -5762,6 +6043,9 @@ def main() -> int:
         counts = {npz_step: last["npz"]["launches"][name]}
         if name in last["search"]["launches"]:
             counts[trial] = last["search"]["launches"][name]
+        if name == "fused_gated_block_centred":   # B4's centred launches, on B4's line
+            kernels[0]["phase15_centred_launches"] = counts
+            continue
         next(k for k in kernels if k["name"] == name)["phase15_launches"] = counts
     for key, name, line in (("b1", "ctc_alpha", 83), ("b2", "ctc_beta", 142)):
         k = pre[key]

@@ -170,9 +170,9 @@ def test_bf16_joint_steps_match_jax(mode, monkeypatch):
     j16, p16 = _run_jax(jnet, jclf, params, jnp.bfloat16, kw)
     seen = []
 
-    def recording_block(x, *w_and_d):
+    def recording_block(x, *w_and_d, **kind):
         seen.append({x.dtype} | {t.dtype for t in w_and_d[:-1]})
-        return fused_gated_block(x, *w_and_d)
+        return fused_gated_block(x, *w_and_d, **kind)
 
     monkeypatch.setattr(blocks, "fused_gated_block", recording_block)
     tx = build_optimizer("adagrad", 1e-2)
@@ -184,7 +184,9 @@ def test_bf16_joint_steps_match_jax(mode, monkeypatch):
     for _ in range(3):
         state, m = step(state, _batch())
         t16.append({k: float(v) for k, v in m.items()})
-    assert seen == [{torch.bfloat16}] * (3 * len(tnet.stack.blocks))
+    n_blocks = sum(isinstance(m, blocks.ResidualBlock) for net in (tnet, tclf)
+                   for m in net.modules())   # causal and centred: all on the fused block
+    assert seen == [{torch.bfloat16}] * (3 * n_blocks)
     assert all(t.dtype == torch.float32 for t in tree_leaves(state.params))
     assert all(m["skipped_nonfinite"] == 0 for m in t16)
     for k in j16[0]:

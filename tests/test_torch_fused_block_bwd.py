@@ -3,7 +3,9 @@ package on the CPU: ``fused_gated_block_bwd_ref`` against the Pallas
 backward kernel in interpret mode and against ``jax.vjp`` of the XLA
 composite, for K in {2, 3}, with dilations whose halo exceeds the CUDA
 kernel's 32-row tile; then ``ResidualBlock`` (causal and non-causal), a
-small ``WaveNet`` and ``WaveNetClassifier`` against ``jax.grad``.
+small ``WaveNet`` and ``WaveNetClassifier`` against ``jax.grad``. The
+centred backward (``causal=False``) and the non-causal ``ResidualBlock`` are
+held against autograd of the composite they replace.
 Tolerance: rtol 1e-4, atol 1e-5, as tests/test_pallas_block.py:110-114
 (f32 sums over frames and channels in another order)."""
 import jax
@@ -21,6 +23,7 @@ from wavenet_speech_tpu_torch.models import WaveNet, WaveNetClassifier
 from wavenet_speech_tpu_torch.models.blocks import ResidualBlock
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref)
+from test_torch_fused_block import BF16_STEP, centred_length, composite_block
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 NAMES = ("dx", "dWg", "dbg", "dWo", "dbo", "dWr", "dbr")
@@ -54,6 +57,62 @@ def test_bwd_ref_matches_pallas_and_vjp(B, L, C_in, C, K, d):
         np.testing.assert_allclose(g.numpy(), np.asarray(w1), err_msg=f"{name} vs vjp", **TOL)
         np.testing.assert_allclose(g.numpy(), np.asarray(w2), err_msg=f"{name} vs pallas",
                                    **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", ["long", "short"])
+@pytest.mark.parametrize("d", [1, 2, 5, 16])
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_centred_bwd_ref_matches_composite(K, d, length, dtype):
+    """The centred plain backward against autograd of the composite, C_in=12
+    != C=8, taps falling off both ends of the short sequences; in bf16 the
+    kernels' arithmetic (inputs widened, results rounded) against the
+    composite's float32 gradients rounded, one bf16 step apart at most."""
+    L = centred_length(K, d, length)
+    rng = np.random.default_rng(10 * K + d)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3).to(dtype)
+    x, gw, gb, ow, ob, rw, rb = (mk(2, L, 12), mk(K, 12, 16), mk(16), mk(8, 16), mk(16),
+                                 mk(12, 8), mk(8))
+    dr, ds = mk(2, L, 8), mk(2, L, 8)
+    leaves = [t.float().requires_grad_(True) for t in (x, gw, gb, ow, ob, rw, rb)]
+    want = torch.autograd.grad(composite_block(*leaves, d), leaves, (dr.float(), ds.float()))
+    got = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+    wrapped = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+    for name, g, w, g2 in zip(NAMES, got, want, wrapped):
+        assert torch.equal(g, g2)  # on the CPU the wrapper is the plain version
+        assert g.dtype == dtype and g.shape == w.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, msg=lambda m: f"{name}: {m}", **TOL)
+        else:
+            tol = BF16_STEP * w.abs() + TOL["atol"] * float(w.abs().max())
+            assert bool(((g.float() - w).abs() <= tol).all()), name
+
+
+@pytest.mark.parametrize("K,d", [(1, 1), (2, 1), (2, 5), (3, 2), (3, 16)])
+def test_centred_residual_block_matches_composite(K, d):
+    """A non-causal ResidualBlock, now on the fused block with the centred
+    pad, gives the outputs and gradients of the composite it ran before, to
+    the bit on the CPU (C_in 12, C 8, L 45, so d=16 at K=3 reaches past both
+    ends)."""
+    blk = ResidualBlock(12, 8, K, d, causal=False, device="cpu")
+    blk.reset_parameters(torch.Generator().manual_seed(K * 100 + d))
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((2, 45, 12)).astype(np.float32))
+    cots = [torch.from_numpy(rng.standard_normal((2, 45, 8)).astype(np.float32))
+            for _ in range(2)]
+    params = [blk.gate_w, blk.gate_b, blk.out_w, blk.out_b, blk.res_w, blk.res_b]
+    results = []
+    for run in ("block", "composite"):
+        xx = x.clone().requires_grad_(True)
+        if run == "block":
+            out = blk(xx)
+        else:
+            gw, gb, ow, ob, rw, rb = params
+            out = composite_block(xx, gw, gb, ow[0], ob, rw, rb, d)
+        results.append((out, torch.autograd.grad(out, [xx] + params, cots)))
+    (out, grads), (want_out, want_grads) = results
+    for g, w in zip(out + grads, want_out + want_grads):
+        assert torch.equal(g, w)
 
 
 def _grads_t(module, x, cot_fn):

@@ -41,6 +41,7 @@ from wavenet_speech_tpu_torch.ops.ctc_scan import ctc_bwd, ctc_bwd_ref, ctc_fwd,
 from wavenet_speech_tpu_torch.ops.fused_block import (fused_gated_block,
                                                       fused_gated_block_bwd,
                                                       fused_gated_block_bwd_ref,
+                                                      fused_gated_block_kernel_ref,
                                                       fused_gated_block_ref)
 from wavenet_speech_tpu_torch.parallel import run_ranks
 from wavenet_speech_tpu_torch.training import TrainState, build_optimizer, trainer
@@ -202,9 +203,10 @@ def test_fused_block_bwd_kernel_is_bit_equal_across_calls(cuda):
             assert torch.equal(a, b), f"{name}: two calls differ"
 
 
-def test_fused_block_autograd_matches_plain(cuda):
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_block_autograd_matches_plain(cuda, causal):
     """The autograd Function (B4 forward, B5 backward) against autograd of
-    the plain version."""
+    the plain version, for a causal and a centred block."""
     g = torch.Generator().manual_seed(3)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
     args = [u(2, 200, 16), u(2, 16, 32) * 0.3, u(32) * 0.1, u(16, 32) * 0.3,
@@ -213,7 +215,7 @@ def test_fused_block_autograd_matches_plain(cuda):
     grads = []
     for fn in (fused_gated_block, fused_gated_block_ref):
         leaves = [a.clone().requires_grad_(True) for a in args]
-        r, s = fn(*leaves, 8)
+        r, s = fn(*leaves, 8, causal)
         ((r * cots[0]).sum() + (s * cots[1]).sum()).backward()
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
@@ -394,6 +396,85 @@ def test_fused_block_bf16_autograd_matches_plain(cuda):
     for name, i in zip(BF16_OUTPUTS, range(7)):
         scale = float(wantb[i].float().abs().max())
         _assert_bf16_close(got[i], wantb[i], (1e-5 if name == "dx" else 1e-4) * scale, name)
+
+
+# centred blocks (causal=False): K 1-3 with spans (K-1) d odd and even, C_in
+# != C, sequences shorter than the span (taps fall off both ends; at L=1 and
+# L=4 every tap of a row, the last included, reads zeros), a width past 512
+# (act through device memory); train.wavenet_ctc's classifier block (B=32,
+# L=4505/4, d=32), and train.raw_ctcnet's widest-dilated block of 512 and its
+# 2048-wide input block (B=24, L=569)
+CENTRED_SHAPES = [(2, 100, 40, 32, 1, 1), (2, 100, 40, 32, 2, 1), (2, 100, 40, 32, 2, 2),
+                  (1, 37, 8, 12, 3, 5), (2, 9, 64, 32, 3, 16), (2, 1, 32, 32, 2, 5),
+                  (2, 4, 32, 32, 2, 16), (2, 150, 40, 600, 3, 5), (32, 1126, 256, 256, 2, 32),
+                  (24, 569, 512, 512, 3, 16), (24, 569, 2048, 512, 2, 1)]
+
+
+def _centred_block(cuda, seed, B, L, C_in, C, K, dtype):
+    """A block's operands with kernels of variance 1/fan_in, as the models
+    initialise them, so that outputs stay O(1) at every width; cotangents."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1).to(cuda)
+    k = lambda fan_in: 3.0 ** 0.5 / fan_in ** 0.5   # uniform(-1, 1) has variance 1/3
+    args = (u(B, L, C_in), u(K, C_in, 2 * C) * k(K * C_in), u(2 * C) * 0.1,
+            u(C, 2 * C) * k(C), u(2 * C) * 0.1, u(C_in, C) * k(C_in), u(C) * 0.1)
+    return [a.to(dtype) for a in args], u(B, L, C).to(dtype), u(B, L, C).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C_in,C,K,d", CENTRED_SHAPES)
+def test_fused_block_centred_kernels_match_plain(cuda, B, L, C_in, C, K, d, dtype):
+    """B4 and B5 (float32, or their bf16 forms) with the centred tap origin
+    against the kernels' arithmetic in plain PyTorch with the centred pad
+    (``fused_gated_block_kernel_ref``, ``fused_gated_block_bwd_ref``), at
+    the causal tests' tolerances; the forward counts one centred launch, and
+    two backward launches give the same bits."""
+    args, dr, ds = _centred_block(cuda, 7 * d + K, B, L, C_in, C, K, dtype)
+    before = (fused_gated_block.launches, fused_gated_block.launches_bf16,
+              fused_gated_block.launches_centred)
+    f32 = dtype == torch.float32
+    with torch.inference_mode():
+        got = fused_gated_block(*args, d, causal=False)
+        want = fused_gated_block_kernel_ref(*args, d, causal=False)
+    torch.cuda.synchronize()
+    assert (fused_gated_block.launches, fused_gated_block.launches_bf16,
+            fused_gated_block.launches_centred) == \
+        (before[0] + f32, before[1] + (not f32), before[2] + 1)
+    for name, a, b in zip(("resid", "skip"), got, want):
+        if f32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=lambda m: f"{name}: {m}")
+        else:
+            _assert_bf16_close(a, b, _fwd_atol(want, args[3]), name)
+    x, gw, gb, ow, _, rw, _ = args
+    got = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+    want = fused_gated_block_bwd_ref(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+    again = fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d, causal=False)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(BF16_OUTPUTS, got, want, again):
+        assert torch.equal(a, c), f"{name}: two launches differ"  # deterministic
+        scale = float(b.float().abs().max())
+        if f32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(1.0, scale),
+                                       msg=lambda m: f"{name}: {m}")
+        else:
+            _assert_bf16_close(a, b, (1e-5 if name == "dx" else 1e-4) * scale, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_causal_launch_is_not_centred_and_repeats_bits(cuda, dtype):
+    """A causal block (origin 0) at train.wavenet_ctc's shape counts no
+    centred launch, and two runs of B4 and of B5 give the same bits."""
+    B, L, C, K, d = 32, 1126, 256, 2, 32
+    args, dr, ds = _centred_block(cuda, 5, B, L, C, C, K, dtype)
+    x, gw, gb, ow, _, rw, _ = args
+    before = fused_gated_block.launches_centred
+    with torch.inference_mode():
+        runs = [fused_gated_block(*args, d) for _ in range(2)]
+    grads = [fused_gated_block_bwd(x, gw, gb, ow, rw, dr, ds, d) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fused_gated_block.launches_centred == before
+    for a, b in zip(runs[0] + grads[0], runs[1] + grads[1]):
+        assert torch.equal(a, b)
 
 
 def test_seq_sharded_decode_chain_equals_one_call(cuda):

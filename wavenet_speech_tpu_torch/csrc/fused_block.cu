@@ -1,10 +1,13 @@
-// Fused causal gated residual block, forward, float32, on Hopper's tensor
-// cores (sm_90a). The bf16 form is fused_block_bf16.cu.
+// Fused gated residual block, causal or centred, forward, float32, on
+// Hopper's tensor cores (sm_90a). The bf16 form is fused_block_bf16.cu.
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/residual_block.py
-// (_kernel, :58, launched by _forward). Per (batch b, tile of TM time rows):
+// (_kernel, :58, launched by _forward), which is causal only, and the XLA
+// composite of the centred (non-causal) block. Per (batch b, tile of TM time
+// rows), with the tap origin R (0 for a causal block; for a centred one the
+// right pad (K-1)*d - autopad(K, d) of ops/conv.py):
 //
-//   g     = sum_tap x[t - (K-1-tap)*d] @ gate_w[tap] + gate_b     (TM, 2C)
+//   g     = sum_tap x[t - (K-1-tap)*d + R] @ gate_w[tap] + gate_b  (TM, 2C)
 //   act   = tanh(g[:, :C]) * sigmoid(g[:, C:])                     (TM, C)
 //   resid = (act @ out_w[:, :C] + x @ res_w + out_b[:C]) + res_b
 //   skip  =  act @ out_w[:, C:] + out_b[C:]
@@ -29,12 +32,13 @@
 //    turns to issue (Turns), so one's adds and loads overlap the other's
 //    products. The call first splits the weights into K-major hi and lo
 //    planes (split_planes): gate_w^T, out_w^T, res_w^T.
-//  * Causal padding: x is read through a 3-D map over (C_in, L, B), each tap
-//    its own TM rows at t0 - s_tap; rows before 0 (and from L on) arrive as
+//  * Padding: x is read through a 3-D map over (C_in, L, B), each tap its
+//    own TM rows at t0 - s_tap + R; rows before 0 and from L on arrive as
 //    zeros, TMA's out-of-bounds fill, never as the previous read's rows. The
 //    TPU kernel DMAs one (TM + halo) window; at d = 512 that is over 500 KB,
 //    more than a block's 227 KB, so the shared memory used here does not
-//    depend on the dilation. A tap whose rows all lie before 0 is skipped.
+//    depend on the dilation. A tap whose rows all lie outside [0, L) is
+//    skipped; the residual 1x1 reads x unshifted.
 //  * Gate: NP = 64 channel pairs a chunk; one step's B is the tanh rows and
 //    the sigmoid rows of gate_w^T (hi and lo each), two m64n64 products whose
 //    accumulators pair up element by element. The epilogue writes act,
@@ -94,7 +98,7 @@ struct FwdParams {
   CUtensorMap act;  // WIDE: act (C, L, B) in device memory, boxes of TM rows
   const float *gate_b, *out_b, *res_b;
   float *resid, *skip, *act_out;
-  int L, C_in, C, K, dilation;
+  int L, C_in, C, K, dilation, origin;
   int phase;  // WIDE: 0 the gate, 1 the 1x1
 };
 
@@ -138,9 +142,11 @@ __global__ void __launch_bounds__(384, 1)
   const int G = nc * K * nki;  // the gate's steps; the 1x1's follow
   const int s0 = WIDE && p.phase == 1 ? G : 0;
   const int S = WIDE && p.phase == 0 ? G : G + no * (na + nki);
-  // a gate step whose TM rows of x all lie before 0 adds nothing
+  // the first row of x a gate step of tap `tap` reads; a step whose TM rows
+  // all lie outside [0, L) adds nothing
+  auto tap_row = [&](int tap) { return t0 - (K - 1 - tap) * p.dilation + p.origin; };
   auto skip = [&](const Step& st) {
-    return st.kind == 0 && t0 - (K - 1 - st.tap) * p.dilation + TM <= 0;
+    return st.kind == 0 && (tap_row(st.tap) + TM <= 0 || tap_row(st.tap) >= p.L);
   };
   if (threadIdx.x == 0) rg.init(4 * NWG);
   __syncthreads();
@@ -154,7 +160,7 @@ __global__ void __launch_bounds__(384, 1)
         const uint32_t slot = ring + (n % STAGES) * SLOT, bar = rg.full(n), c = st.kc * KS;
         if (st.kind == 0) {  // x rows of the tap; tanh rows, sigmoid rows (hi, lo each)
           rg.produce(n++, A_BYTES + 4 * NP * ROW_BYTES);
-          tma_load(slot, &p.x, bar, c, t0 - (K - 1 - st.tap) * p.dilation, b);
+          tma_load(slot, &p.x, bar, c, tap_row(st.tap), b);
           for (int h = 0; h < 2; ++h)
             for (int pl = 0; pl < 2; ++pl)
               tma_load(slot + A_BYTES + (2 * h + pl) * NP * ROW_BYTES, &p.wg, bar, c, st.chunk * NP,
@@ -210,13 +216,15 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < NP; ++i) acc[i] = 0.f;
       }
-      if (skip(st)) continue;
-      step(st, [&](const Frag* f, uint32_t slot) {
-        const uint32_t B0 = slot + A_BYTES;
-        mma_step<NP>(sa, f, B0, B0 + NP * ROW_BYTES);
-        mma_step<NP>(sa + NP / 2, f, B0 + 2 * NP * ROW_BYTES, B0 + 3 * NP * ROW_BYTES);
-      });
-      add_step<NP>(acc, sa);
+      if (!skip(st)) {
+        step(st, [&](const Frag* f, uint32_t slot) {
+          const uint32_t B0 = slot + A_BYTES;
+          mma_step<NP>(sa, f, B0, B0 + NP * ROW_BYTES);
+          mma_step<NP>(sa + NP / 2, f, B0 + 2 * NP * ROW_BYTES, B0 + 3 * NP * ROW_BYTES);
+        });
+        add_step<NP>(acc, sa);
+      }
+      // (a centred block's last tap may be skipped: act is written all the same)
       if (!st.last) continue;
       // act of channels NP chunk + [0, NP), into act's 32-column tiles
 #pragma unroll
@@ -300,9 +308,10 @@ extern "C" int wst_fused_gated_block_f32(const float* x, const float* gate_w, co
                                          const float* out_w, const float* out_b, const float* res_w,
                                          const float* res_b, float* resid, float* skip,
                                          float* planes, float* act, int B, int L, int C_in, int C,
-                                         int K, int dilation, void* stream) {
+                                         int K, int dilation, int origin, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  if (C_in % 32 || C % 32 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || (C > MAX_C && !act))
+  if (C_in % 32 || C % 32 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || origin < 0 ||
+      origin > (K - 1) * dilation || (C > MAX_C && !act))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the weights' hi and lo planes, K-major: gate_w^T, out_w^T, res_w^T
@@ -321,7 +330,7 @@ extern "C" int wst_fused_gated_block_f32(const float* x, const float* gate_w, co
       (rc = map_weights(&a.wr, wr_p, 1, 1, C, C_in, NO)))
     return rc;
   a.gate_b = gate_b, a.out_b = out_b, a.res_b = res_b, a.resid = resid, a.skip = skip;
-  a.L = L, a.C_in = C_in, a.C = C, a.K = K, a.dilation = dilation;
+  a.L = L, a.C_in = C_in, a.C = C, a.K = K, a.dilation = dilation, a.origin = origin;
   if (C <= MAX_C) return NWG == 2 ? launch<2, false>(a, B, st) : launch<1, false>(a, B, st);
   if ((rc = map_rows(&a.act, act, B, L, C, 128))) return rc;
   a.act_out = act;

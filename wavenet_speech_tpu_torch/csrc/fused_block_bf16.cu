@@ -1,11 +1,12 @@
-// Fused causal gated residual block, forward, bf16, on Hopper's tensor cores
-// (sm_90a).
+// Fused gated residual block, causal or centred, forward, bf16, on Hopper's
+// tensor cores (sm_90a).
 //
 // Replaces the bf16 form of the Pallas TPU kernel wavenet_speech_tpu/ops/
-// pallas/residual_block.py (_kernel, :58-94, launched by _forward). Per
-// (batch b, tile of TM time rows):
+// pallas/residual_block.py (_kernel, :58-94, launched by _forward), which is
+// causal only. Per (batch b, tile of TM time rows), with the tap origin R (0
+// for a causal block, the right pad for a centred one; fused_block.cu):
 //
-//   g     = sum_tap x[t - (K-1-tap)*d] @ gate_w[tap] + gate_b     (TM, 2C)
+//   g     = sum_tap x[t - (K-1-tap)*d + R] @ gate_w[tap] + gate_b  (TM, 2C)
 //   act   = bf16(tanh(g[:, :C]) * sigmoid(g[:, C:]))               (TM, C)
 //   resid = bf16(act @ out_w[:, :C] + x @ res_w + out_b[:C] + res_b)
 //   skip  = bf16(act @ out_w[:, C:] + out_b[C:])
@@ -34,10 +35,10 @@
 //    K-major), two m64n128 products fill a tanh and a sigmoid accumulator
 //    whose registers pair up element by element; the epilogue writes bf16
 //    act into shared memory, where it stays as the A operand of the 1x1.
-//  * Causal padding: each tap's x rows are copied with cp.async's zero fill
-//    for rows before 0 and from L on, within the sequence, so any dilation
-//    works without a halo buffer and the shared memory used does not depend
-//    on it.
+//  * Padding: each tap's x rows are copied with cp.async's zero fill for
+//    rows before 0 and from L on, within the sequence, so any dilation and
+//    origin work without a halo buffer and the shared memory used does not
+//    depend on them.
 //  * 1x1: per 128 output channels, out_w^T's residual and skip rows as one
 //    B tile over act, then x @ res_w^T into the residual accumulator; float
 //    epilogue, staged through shared memory so that resid and skip leave as
@@ -67,7 +68,7 @@ constexpr int HALF = 128 * ROW_BYTES;     // a 128-row half of the B tile
 struct Args {
   const bf16 *x, *wgT, *gate_b, *woT, *out_b, *wrT, *res_b;
   bf16 *resid, *skip;
-  int L, C_in, C, K, dilation;
+  int L, C_in, C, K, dilation, origin;
 };
 
 size_t smem_bytes(int C) {
@@ -110,7 +111,8 @@ __global__ void __launch_bounds__(NT, 2) fused_gated_block_bf16_kernel(const Arg
     if (st.gate) {
       const bf16* w = a.wgT + (size_t)st.tap * 2 * C * C_in;
       const bf16* ws = w + (size_t)C * C_in;
-      load_rows<NT>(slot, TM, xb, xb, C_in, C_in, t0 - (a.K - 1 - st.tap) * a.dilation, a.L, c0);
+      load_rows<NT>(slot, TM, xb, xb, C_in, C_in, t0 - (a.K - 1 - st.tap) * a.dilation + a.origin,
+                    a.L, c0);
       load_rows<NT>(sb, 128, w, w, C_in, C_in, r0, C, c0);
       load_rows<NT>(sb + HALF, 128, ws, ws, C_in, C_in, r0, C, c0);
     } else if (st.act) {
@@ -186,16 +188,18 @@ __global__ void __launch_bounds__(NT, 2) fused_gated_block_bf16_kernel(const Arg
 extern "C" int wst_fused_gated_block_bf16(const bf16* x, const bf16* wgT, const bf16* gate_b,
                                           const bf16* woT, const bf16* out_b, const bf16* wrT,
                                           const bf16* res_b, bf16* resid, bf16* skip, int B,
-                                          int L, int C_in, int C, int K, int dilation,
+                                          int L, int C_in, int C, int K, int dilation, int origin,
                                           void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1)
+  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || origin < 0 ||
+      origin > (K - 1) * dilation)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(C);  // C <= 1152: act and the ring fit a block's 227 KB
   if (smem > 232448) return (int)cudaErrorInvalidConfiguration;
   int rc = wst_set_smem(fused_gated_block_bf16_kernel, smem);
   if (rc) return rc;
-  const Args a{x, wgT, gate_b, woT, out_b, wrT, res_b, resid, skip, L, C_in, C, K, dilation};
+  const Args a{x, wgT, gate_b, woT, out_b, wrT, res_b, resid, skip, L, C_in, C, K, dilation,
+               origin};
   fused_gated_block_bf16_kernel<<<dim3((L + TM - 1) / TM, B), NT, smem,
                                   static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

@@ -1,12 +1,13 @@
-// Fused causal gated residual block, backward, float32, on Hopper's tensor
-// cores (sm_90a). The bf16 form is fused_block_bwd_bf16.cu.
+// Fused gated residual block, causal or centred, backward, float32, on
+// Hopper's tensor cores (sm_90a). The bf16 form is fused_block_bwd_bf16.cu.
 //
 // Replaces the Pallas TPU kernel wavenet_speech_tpu/ops/pallas/
-// residual_block.py (_bwd_kernel, :201, launched by _pallas_bwd). The
-// forward (fused_block.cu) saves only x and the weights; this recomputes the
-// gate:
+// residual_block.py (_bwd_kernel, :201, launched by _pallas_bwd), which is
+// causal only. The forward (fused_block.cu) saves only x and the weights;
+// this recomputes the gate. With the tap origin R (0 for a causal block, the
+// right pad for a centred one; fused_block.cu):
 //
-//   g    = sum_tap x[t - s_tap] @ Wg[tap] + bg,   s_tap = (K-1-tap) * d
+//   g    = sum_tap x[t - s_tap] @ Wg[tap] + bg,   s_tap = (K-1-tap) * d - R
 //   th   = tanh(g[:, :C]),  sg = sigmoid(g[:, C:]),  act = th * sg
 //   do   = [dresid | dskip]                                     (L, 2C)
 //   da   = do @ Wo^T
@@ -36,7 +37,8 @@
 // through 3-D maps over (channels, L, B), so a tap's rows before 0 or from L
 // on of a sequence arrive as zeros (TMA's out-of-bounds fill) and never as
 // another sequence's rows; a step whose rows all lie outside is skipped, by
-// producer and consumers alike. The row products, (a) and (b), are
+// producer and consumers alike (in (c) not where the step's B columns feed
+// a bias sum). The row products, (a) and (b), are
 // persistent: at most one block an SM walks their (output chunk, row tile)
 // units, so the last wave is at most one unit short.
 //  (a) da = [dresid | dskip] @ Wo^T as a row product into float32 scratch;
@@ -106,8 +108,8 @@ constexpr int MAX_TAPS = 8;
 
 // ---- (a), (b) row products: out[t] = sum_terms A[t + shift] . W^T, per sequence
 // Term set 0: ntap terms, term j reads A map a[0] shifted by
-// shift_step * (ntap - 1 - j) rows against matrix j of weight map w[0], k0
-// columns each. Term set 1 (k1 > 0): A map a[1] against w[1]'s matrix 0 from
+// shift_step * (ntap - 1 - j) + origin rows against matrix j of weight map
+// w[0], k0 columns each. Term set 1 (k1 > 0): A map a[1] against w[1]'s matrix 0 from
 // its column w1_koff, k1 columns. GATE: the gate recompute, N channel pairs,
 // B tiles of 64 tanh and 64 sigmoid rows, and the dg / act epilogue;
 // otherwise N output channels, B tiles of 128 rows, stored to out.
@@ -115,7 +117,7 @@ struct RowsParams {
   CUtensorMap a[2];  // (cols, L, B), boxes of TM rows
   CUtensorMap w[2];  // weight planes (map_weights), boxes of 64 (GATE) or 128 rows
   int z[2];          // matrices of w[0], w[1] (the lo planes start at z)
-  int ntap, k0, k1, w1_koff, shift_step, B, L, N;
+  int ntap, k0, k1, w1_koff, shift_step, origin, B, L, N;
   float* out;
   const float* gate_b;  // GATE: gate_b (2C), da (B, L, C) in; dg (B, L, 2C), act (B, L, C) out
   const float* da;
@@ -130,7 +132,7 @@ __device__ __forceinline__ RStep rows_step(const RowsParams& p, int u) {
   const int n0 = p.k0 / KS;
   if (u < p.ntap * n0) {
     const int j = u / n0, c = (u % n0) * KS;
-    return RStep{0, j, c, c, p.shift_step * (p.ntap - 1 - j)};
+    return RStep{0, j, c, c, p.shift_step * (p.ntap - 1 - j) + p.origin};
   }
   const int c = (u - p.ntap * n0) * KS;
   return RStep{1, 0, c, p.w1_koff + c, 0};
@@ -256,9 +258,9 @@ __global__ void __launch_bounds__(NT, 1) bwd_rows_kernel(const __grid_constant__
 
 // ---- (c) weight gradients: partial sums of A^T B over one frame slice -------
 // A and B are (B*L, cols) matrices over the frames: A is map `a` with its
-// rows shifted by a_shift frames within each sequence (rows before a
-// sequence's start read zero); B's columns [0, b_split) are map b0, the rest
-// map b1.
+// rows shifted by a_shift frames within each sequence (rows outside the
+// sequence read zero); B's columns [0, b_split) are map b0, the rest map
+// b1.
 struct Job {
   int a, a_shift, a_cols;
   int b0, b1, b_split, b_cols;
@@ -293,8 +295,13 @@ __global__ void __launch_bounds__(NT, 1) bwd_wgrad_kernel(const __grid_constant_
   const int i0 = (tile / jb.tiles_n) * WT, j0 = (tile % jb.tiles_n) * WT;
   const int nq = cdiv(p.L, FR), q0 = blockIdx.y * p.per_slice;
   const int S = max(0, min(p.B * nq, q0 + p.per_slice) - q0);
-  // a step whose shifted A rows all lie before the sequence's start adds nothing
-  auto skip = [&](int s) { return ((q0 + s) % nq) * FR + FR <= jb.a_shift; };
+  const bool bias = jb.bias >= 0 && i0 == 0;
+  // a step whose shifted A rows all lie outside the sequence adds no product;
+  // it still adds its B columns to the bias sums
+  auto skip = [&](int s) {
+    const int t = ((q0 + s) % nq) * FR - jb.a_shift;
+    return !bias && (t + FR <= 0 || t >= p.L);
+  };
   if (threadIdx.x == 0) rg.init(CWARPS);
   __syncthreads();
 
@@ -328,7 +335,6 @@ __global__ void __launch_bounds__(NT, 1) bwd_wgrad_kernel(const __grid_constant_
 
   consumer_regs();
   const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool bias = jb.bias >= 0 && i0 == 0;
   const int bcol = threadIdx.x & 127;  // bias: column bcol, frames [16 wg, 16 wg + 16) of a step
   float acc[64], sa[64], bsum = 0.f;  // the tile's sum, a step's (mma_step)
 #pragma unroll
@@ -416,7 +422,7 @@ __global__ void bwd_slice_sum_kernel(const float* __restrict__ part, float* __re
 int launch(const float* x, const float* dresid, const float* dskip, const float* gate_w,
            const float* gate_b, const float* out_w, const float* res_w, float* dx, float* grads,
            float* planes, float* da, float* dg, float* act, float* part, int B, int L, int C_in,
-           int C, int K, int dilation, cudaStream_t st) {
+           int C, int K, int dilation, int origin, cudaStream_t st) {
   const int C2 = 2 * C, N = B * L;
   const int o_dbg = K * C_in * C2, o_dwo = o_dbg + C2, o_dbo = o_dwo + C * C2, o_dwr = o_dbo + C2,
             o_dbr = o_dwr + C_in * C, W = o_dbr + C;
@@ -457,19 +463,21 @@ int launch(const float* x, const float* dresid, const float* dskip, const float*
         (rc = map_weights(&r.w[0], wgT_p, K, 2, C, C_in, 64)))
       return rc;
     r.z[0] = K;
-    r.ntap = K, r.k0 = C_in, r.k1 = 0, r.shift_step = -dilation, r.B = B, r.L = L, r.N = C;
+    r.ntap = K, r.k0 = C_in, r.k1 = 0, r.shift_step = -dilation, r.origin = origin, r.B = B;
+    r.L = L, r.N = C;
     r.gate_b = gate_b, r.da = da, r.dg = dg, r.act = act;
     bwd_rows_kernel<true><<<rows_grid(64, C), NT, SMEM, st>>>(r);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
-  {  // (b) dx = sum_tap dg[t + s_tap] @ Wg[tap]^T + dresid @ Wr^T
+  {  // (b) dx = sum_tap dg[t + s_tap] @ Wg[tap]^T + dresid @ Wr^T (s_tap with the origin)
     RowsParams r{};
     if ((rc = map_rows(&r.a[0], dg, B, L, C2, TM)) || (rc = map_rows(&r.a[1], dresid, B, L, C, TM)) ||
         (rc = map_weights(&r.w[0], wg_p, K, 1, C_in, C2, 128)) ||
         (rc = map_weights(&r.w[1], wr_p, 1, 1, C_in, C, 128)))
       return rc;
     r.z[0] = K, r.z[1] = 1;
-    r.ntap = K, r.k0 = C2, r.k1 = C, r.w1_koff = 0, r.shift_step = dilation, r.B = B, r.L = L;
+    r.ntap = K, r.k0 = C2, r.k1 = C, r.w1_koff = 0, r.shift_step = dilation, r.origin = -origin;
+    r.B = B, r.L = L;
     r.N = C_in, r.out = dx;
     bwd_rows_kernel<false><<<rows_grid(128, C_in), NT, SMEM, st>>>(r);
     if ((rc = (int)cudaGetLastError())) return rc;
@@ -487,8 +495,8 @@ int launch(const float* x, const float* dresid, const float* dskip, const float*
     j.tiles_n = cdiv(j.b_cols, WT);
     all.push_back(j);
   };
-  for (int tap = 0; tap < K; ++tap)  // dbg with the unshifted tap
-    add(Job{MX, (K - 1 - tap) * dilation, C_in, MDG, MDG, C2, C2, tap * C_in * C2,
+  for (int tap = 0; tap < K; ++tap)  // dbg with the last tap (unshifted when causal)
+    add(Job{MX, (K - 1 - tap) * dilation - origin, C_in, MDG, MDG, C2, C2, tap * C_in * C2,
             tap == K - 1 ? o_dbg : -1, 0, 0});
   add(Job{MACT, 0, C, MDR, MDS, C, C2, o_dwo, o_dbo, 0, 0});
   add(Job{MX, 0, C_in, MDR, MDR, C, C, o_dwr, o_dbr, 0, 0});
@@ -523,9 +531,10 @@ extern "C" int wst_fused_gated_block_bwd_f32(const float* x, const float* dresid
                                              const float* out_w, const float* res_w, float* dx,
                                              float* grads, float* planes, float* da, float* dg,
                                              float* act, float* part, int B, int L, int C_in, int C,
-                                             int K, int dilation, void* stream) {
-  if (C_in % 32 || C % 32 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || B < 0 || L < 0)
+                                             int K, int dilation, int origin, void* stream) {
+  if (C_in % 32 || C % 32 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || B < 0 || L < 0 ||
+      origin < 0 || origin > (K - 1) * dilation)
     return (int)cudaErrorInvalidValue;
   return launch(x, dresid, dskip, gate_w, gate_b, out_w, res_w, dx, grads, planes, da, dg, act,
-                part, B, L, C_in, C, K, dilation, static_cast<cudaStream_t>(stream));
+                part, B, L, C_in, C, K, dilation, origin, static_cast<cudaStream_t>(stream));
 }

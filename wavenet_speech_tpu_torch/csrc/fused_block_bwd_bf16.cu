@@ -1,11 +1,13 @@
-// Fused causal gated residual block, backward, bf16, on Hopper's tensor
-// cores (sm_90a).
+// Fused gated residual block, causal or centred, backward, bf16, on
+// Hopper's tensor cores (sm_90a).
 //
 // Replaces the bf16 form of the Pallas TPU kernel wavenet_speech_tpu/ops/
 // pallas/residual_block.py (_bwd_kernel, :245-300, launched by _pallas_bwd,
-// casts :382-384). It recomputes the gate from x, as the TPU kernel does:
+// casts :382-384), which is causal only. It recomputes the gate from x, as
+// the TPU kernel does; R is the tap origin (0 for a causal block, the right
+// pad for a centred one; fused_block.cu):
 //
-//   g    = sum_tap x[t - s_tap] @ Wg[tap] + bg,   s_tap = (K-1-tap) * d
+//   g    = sum_tap x[t - s_tap] @ Wg[tap] + bg,   s_tap = (K-1-tap) * d - R
 //   th   = tanh(g[:, :C]),  sg = sigmoid(g[:, C:]),  act = th * sg
 //   do   = [dresid | dskip];  da = do @ Wo^T
 //   dg   = [da * sg * (1 - th^2) | da * th * sg * (1 - sg)]
@@ -43,7 +45,8 @@
 //      NSLICE fixed slices: each block sums its (128 x 128 tile, slice) with
 //      wgmma on MN-major tiles (frames are the reduction dimension, so x, dg,
 //      act and do are read as stored, with the transpose bits set); a frame
-//      t < s_tap of a sequence reads zero for the shifted x. The bias sums
+//      t whose t - s_tap lies outside the sequence reads zero for the
+//      shifted x. The bias sums
 //      add the B tile's columns on the CUDA cores while the product runs.
 //  (d) the slices' partial sums added in slice order and rounded to bf16.
 // Fixed slices and a fixed order: the result is the same bits on every run.
@@ -170,7 +173,7 @@ struct GateArgs {
   const bf16 *x, *wgT, *gate_b;
   const float* da;
   bf16 *dg_hi, *dg_lo, *act_hi, *act_lo;
-  int L, C_in, C, K, dilation;
+  int L, C_in, C, K, dilation, origin;
 };
 
 // ---- (a) recompute the gate; dg and act as hi/lo planes for TM rows ---------
@@ -189,7 +192,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_gate_kernel(const GateArgs a) {
     const int u = s % per, tap = u / nki, c0 = (u % nki) * TK, r0 = (s / per) * 128;
     const bf16* w = a.wgT + (size_t)tap * C2 * a.C_in;
     const bf16* ws = w + (size_t)C * a.C_in;
-    load_rows<NT>(slot, TM, xb, xb, a.C_in, a.C_in, t0 - (a.K - 1 - tap) * a.dilation, a.L, c0);
+    load_rows<NT>(slot, TM, xb, xb, a.C_in, a.C_in, t0 - (a.K - 1 - tap) * a.dilation + a.origin,
+                  a.L, c0);
     load_rows<NT>(slot + A_BYTES, 128, w, w, a.C_in, a.C_in, r0, C, c0);
     load_rows<NT>(slot + 2 * A_BYTES, 128, ws, ws, a.C_in, a.C_in, r0, C, c0);
   };
@@ -261,8 +265,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_gate_kernel(const GateArgs a) {
 // A and B are (N = B*L, cols) matrices over the frames, read in `np` planes
 // (the hi and lo of a split operand; an unsplit operand repeats its one
 // plane). B's columns [0, b_split) come from b0, the rest from b1. A's rows
-// are shifted by a_shift frames within each sequence (zero before a
-// sequence's start).
+// are shifted by a_shift frames within each sequence (zero outside the
+// sequence).
 struct Job {
   const bf16* a[2];
   const bf16* b0[2];
@@ -302,8 +306,8 @@ __global__ void __launch_bounds__(NT, 2)
     const bf16* ap = jb.a[u];
     for (int id = threadIdx.x; id < 2 * 64 * 8; id += NT) {
       const int h = id >> 9, f = (id >> 3) & 63, c = (id & 7) * 8;
-      const int n = n0 + f, ch = i0 + h * 64 + c;
-      const bool ok = n < n_end && n % L >= jb.a_shift && ch < jb.a_cols;
+      const int n = n0 + f, ch = i0 + h * 64 + c, t = n % L - jb.a_shift;
+      const bool ok = n < n_end && t >= 0 && t < L && ch < jb.a_cols;
       cp16(slot + h * SUB + swz(f, c), ok ? ap + (size_t)(n - jb.a_shift) * jb.a_cols + ch : ap, ok);
     }
     const bf16 *b0 = jb.b0[ub], *b1 = jb.b1[ub];
@@ -380,8 +384,9 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
                                               const bf16* gate_w, const bf16* res_w, bf16* dx,
                                               bf16* grads, bf16* dgs, bf16* acts, float* da,
                                               float* part, int B, int L, int C_in, int C, int K,
-                                              int dilation, void* stream) {
-  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || B < 0 || L < 0)
+                                              int dilation, int origin, void* stream) {
+  if (C_in % 8 || C % 8 || C_in <= 0 || C <= 0 || K < 1 || dilation < 1 || B < 0 || L < 0 ||
+      origin < 0 || origin > (K - 1) * dilation)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C2 = 2 * C, N = B * L;
@@ -401,7 +406,7 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
     rc = (int)cudaGetLastError();
     if (rc) return rc;
     bwd_gate_kernel<<<grid, NT, SMEM, st>>>(
-        GateArgs{x, wgT, gate_b, da, dg_hi, dg_lo, act_hi, act_lo, L, C_in, C, K, dilation});
+        GateArgs{x, wgT, gate_b, da, dg_hi, dg_lo, act_hi, act_lo, L, C_in, C, K, dilation, origin});
     rc = (int)cudaGetLastError();
     if (rc) return rc;
     // dx = sum_tap (dg_hi + dg_lo)[t + s_tap] @ gate_w[tap]^T + dresid @ res_w^T,
@@ -414,7 +419,7 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
       for (int tap = g * MAX_TAPS; tap < std::min(K, (g + 1) * MAX_TAPS); ++tap)
         for (const bf16* plane : planes)
           r.term[r.nterm++] = Term{plane, plane, gate_w + (size_t)tap * C_in * C2, C2, C2,
-                                   (K - 1 - tap) * dilation};
+                                   (K - 1 - tap) * dilation - origin};
       if (g == 0) r.term[r.nterm++] = Term{dresid, dresid, res_w, C, C, 0};
       r.L = L, r.N = C_in;
       if (groups == 1)
@@ -438,8 +443,8 @@ extern "C" int wst_fused_gated_block_bwd_bf16(const bf16* x, const bf16* dresid,
     all.push_back(j);
   };
   for (int tap = 0; tap < K; ++tap)
-    add(Job{{x, x}, {dg_hi, dg_lo}, {dg_hi, dg_lo}, C_in, (K - 1 - tap) * dilation, C2, C2, 2, 2,
-            tap * C_in * C2, tap == 0 ? o_dbg : -1, 0, 0});
+    add(Job{{x, x}, {dg_hi, dg_lo}, {dg_hi, dg_lo}, C_in, (K - 1 - tap) * dilation - origin, C2,
+            C2, 2, 2, tap * C_in * C2, tap == 0 ? o_dbg : -1, 0, 0});
   add(Job{{act_hi, act_lo}, {dresid, dresid}, {dskip, dskip}, C, 0, C, C2, 2, 1, o_dwo, o_dbo, 0, 0});
   add(Job{{x, x}, {dresid, dresid}, {dresid, dresid}, C_in, 0, C, C, 1, 1, o_dwr, o_dbr, 0, 0});
   const int rows = cdiv(N > 0 ? N : 1, NSLICE);

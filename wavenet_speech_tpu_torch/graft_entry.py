@@ -16,8 +16,8 @@ checks in turn:
   1. (seq > 1) the joint WaveNet-CTC loss and every gradient leaf of a
      64-channel model (10 causal blocks d=1..512, a pooled classifier of
      6), L=1024, sequence-sharded by halo exchange, the batch over
-     "data", the params TP-sharded over "model" (B4 and B5 at every causal
-     block, B3 for the CTC on the card): rtol 1e-5 (loss), 1e-4 / atol
+     "data", the params TP-sharded over "model" (B4 and B5 at every block,
+     B3 for the CTC on the card): rtol 1e-5 (loss), 1e-4 / atol
      1e-6 (gradients). On the card the gradients are held instead to the
      same check in float64 on the CPU (the exact answer, to float32):
      every element within rtol 1e-4 of it plus JOINT_SENS times the
@@ -33,7 +33,8 @@ checks in turn:
   3. (seq > 1) the sequence-sharded CTC (B3) on (2, 32, 5) logits: the
      loss rtol 1e-6, the gradient 1e-4 / 1e-5;
   4. one Adam step of ``make_ctc_train_step`` on the flagship at 16
-     features (B1 and B2), the params TP-sharded and the batch over a
+     features (B4 and B5 at its 7 centred blocks, B1 and B2), the params
+     TP-sharded and the batch over a
      (data x seq, model) mesh of the same ranks (JAX shards the batch over
      "data" and replicates it over "seq"; the port's step would run SP on
      a seq axis > 1): the params within rtol 2e-3 / atol 1e-6 of one
@@ -186,6 +187,7 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count set to 0."""
     for fn in (fused_gated_block, fused_gated_block_bwd):
         fn.launches = fn.launches_bf16 = 0
+    fused_gated_block.launches_centred = 0
     for fn in (ctc_fwd, ctc_bwd):
         fn.launches = fn.launches_segment = 0
     beam_search_kernel.launches = 0
@@ -193,13 +195,15 @@ def reset_launches() -> None:
 
 def launches() -> Dict[str, int]:
     """The launch counts since ``reset_launches``, by kernel: B4
-    fused_gated_block, B5 fused_gated_block_bwd (and their bf16 forms),
-    B1 ctc_alpha, B2 ctc_beta, B3 ctc_alpha_segment and ctc_beta_segment,
-    B6 ctc_beam."""
+    fused_gated_block, B5 fused_gated_block_bwd (and their bf16 forms; B4's
+    launches of centred blocks, either form, again as
+    fused_gated_block_centred), B1 ctc_alpha, B2 ctc_beta, B3
+    ctc_alpha_segment and ctc_beta_segment, B6 ctc_beam."""
     return {"fused_gated_block": fused_gated_block.launches,
             "fused_gated_block_bwd": fused_gated_block_bwd.launches,
             "fused_gated_block_bf16": fused_gated_block.launches_bf16,
             "fused_gated_block_bwd_bf16": fused_gated_block_bwd.launches_bf16,
+            "fused_gated_block_centred": fused_gated_block.launches_centred,
             "ctc_alpha": ctc_fwd.launches, "ctc_beta": ctc_bwd.launches,
             "ctc_alpha_segment": ctc_fwd.launches_segment,
             "ctc_beta_segment": ctc_bwd.launches_segment,

@@ -10,20 +10,24 @@ Parameters keep the JAX layout and names: ``gate_w`` (K, C_in, 2C),
 ``gate_b`` (2C,), ``out_w`` (1, C, 2C), ``out_b`` (2C,), ``res_w``
 (C_in, C), ``res_b`` (C,).
 
-Causal blocks (WaveNet's) run the fused block ``ops.fused_block``: on the
-card its forward and backward kernels (an autograd Function), on the CPU
-its plain version, which autograd differentiates. Non-causal blocks (the
-classifier's) run the composite below, as in JAX, whose kernel is causal
-only.
+Both kinds of block run the fused block ``ops.fused_block``: on the card
+its forward and backward kernels (an autograd Function), on the CPU its
+plain version, which autograd differentiates. Causal blocks (WaveNet's)
+read their taps behind each frame; centred blocks (the classifier's,
+RawCTCNet's) pad as ``noncausal_conv1d`` does, which the kernels take as a
+tap origin (``ops.fused_block.tap_origin``). The JAX package runs its
+centred blocks on the XLA composite: its kernel is causal only.
 
 Under sequence parallelism (``parallel.halo.seq_axis``) the JAX package
 leaves its kernel for the XLA composite, because the kernel zero-pads
-where the halo should be (ops/pallas/residual_block.py:111-121). Here the
-causal block runs the fused block on the window [left halo | shard] and
-keeps its last L_shard frames: the zero padding reaches only frames that
-are dropped, and the gradient of the halo rows flows back through the
-exchange. The outputs equal the composite's; the kernels stay on the SP
-path at the cost of (K-1)*d extra frames a block.
+where the halo should be (ops/pallas/residual_block.py:111-121). Here a
+block runs the fused block on the window [left halo | shard | right halo]
+(causal: (K-1)*d frames on the left; centred: ``autopad`` on the left and
+the tap origin on the right) and keeps the shard's L_shard frames: the
+kernels' zero padding reaches only frames that are dropped, and the
+gradient of the halo rows flows back through the exchange. The outputs
+equal the composite's; the kernels stay on the SP path at the cost of
+(K-1)*d extra frames a block.
 """
 from __future__ import annotations
 
@@ -33,10 +37,9 @@ import torch
 from torch import nn
 
 from wavenet_speech_tpu_torch.nn import initializers as init
-from wavenet_speech_tpu_torch.ops.activations import gated_activation
 from wavenet_speech_tpu_torch.ops.conv import (CausalConv1d, Conv1x1, causal_conv1d,
-                                               noncausal_conv1d, receptive_field)
-from wavenet_speech_tpu_torch.ops.fused_block import fused_gated_block
+                                               receptive_field)
+from wavenet_speech_tpu_torch.ops.fused_block import fused_gated_block, tap_origin
 from wavenet_speech_tpu_torch.ops.norm import LayerNorm
 from wavenet_speech_tpu_torch.parallel.halo import current_seq_axis, halo_pad
 
@@ -78,21 +81,19 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         """x (B, L, C_in) -> (residual_out, skip_out), each (B, L, C)."""
-        if self.causal:
-            mesh = current_seq_axis()
-            halo = (self.kernel_width - 1) * self.dilation if mesh is not None else 0
-            if halo:
-                x = halo_pad(x, halo, 0, mesh)
-            resid, skip = fused_gated_block(x, self.gate_w, self.gate_b, self.out_w[0],
-                                            self.out_b, self.res_w, self.res_b,
-                                            self.dilation)
-            return (resid[:, halo:], skip[:, halo:]) if halo else (resid, skip)
-        C = self.out_channels
-        g = noncausal_conv1d(x, self.gate_w, self.gate_b, dilation=self.dilation)
-        act = gated_activation(g[..., :C], g[..., C:])
-        o = act @ self.out_w[0] + self.out_b  # the 1x1 conv
-        resid = o[..., :C] + (x @ self.res_w + self.res_b)
-        return resid, o[..., C:]
+        K, d = self.kernel_width, self.dilation
+        mesh = current_seq_axis()
+        right = tap_origin(K, d, self.causal) if mesh is not None else 0
+        left = (K - 1) * d - right if mesh is not None else 0
+        if left + right:
+            x = halo_pad(x, left, right, mesh)
+        resid, skip = fused_gated_block(x, self.gate_w, self.gate_b, self.out_w[0],
+                                        self.out_b, self.res_w, self.res_b, d,
+                                        causal=self.causal)
+        if left + right:
+            L = x.shape[1] - left - right
+            resid, skip = resid[:, left:left + L], skip[:, left:left + L]
+        return resid, skip
 
 
 # ---- ByteNet blocks (blocks.py:95-220): causal convs, which JAX computes as

@@ -11,8 +11,8 @@ LeakyReLU -> 1x1 to num_labels -> optional softmax.
 Init (raw_ctcnet.py:29-31, 65-100): kaiming-uniform weights; eye + 1e-4
 noise bottlenecks and position mixer; zero + 1e-4 noise biases.
 
-Non-causal blocks (the default) run the composite; with ``causal=True`` the
-blocks run the fused block, which is its kernel on the card.
+The blocks, centred (the default) or with ``causal=True`` causal, run the
+fused block, which is its kernels on the card (``models.blocks``).
 
 Under sequence parallelism (``parallel.halo.seq_axis``; JAX's
 raw_ctcnet.py:120-155) the featurizer, which lengthens the time axis by
