@@ -21,24 +21,13 @@ import torch
 
 from wavenet_speech_tpu import cli as jcli
 from wavenet_speech_tpu.tools import bayes_opt as jbo
+from torch_threads import one_thread  # noqa: F401  (a fixture)
 from wavenet_speech_tpu_torch import bridge, cli
 from wavenet_speech_tpu_torch.tools import bayes_opt as bo
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 VLOSS_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch on one intra-op thread: these loops take small steps, and
-    beside the parallel suite's other workers torch's 8 threads a process
-    made one of them 150x slower (tests/test_torch_hdf5.py has the same
-    fixture for the same reason)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 SPACE = {"training.optim.learning_rate": (1e-5, 1e-2, "log"),
          "training.optim.max_grad_norm": (0.5, 50.0, "log")}

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import tests.make_golden_realread as mgr
+from torch_threads import one_thread  # noqa: F401  (a fixture)
 from tools.make_synthetic_reads import main as make_reads
 from tools.make_synthetic_reads import make_read
 from wavenet_speech_tpu import cli as jcli
@@ -217,20 +218,6 @@ def test_port_worker_rebuilds_the_realread_fixture(tmp_path):
     np.testing.assert_array_equal(np.asarray(subintervals, np.int64), want["subintervals"])
 
 
-@pytest.fixture
-def one_thread():
-    """torch on one intra-op thread for the test, whose steps are small:
-    alone on an 8-core CPU it takes 8.1 s so against 10.4 s on 8 threads,
-    and beside the parallel suite's other workers 8 threads took it from
-    21.5 s to 749 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def test_realread_overfit_on_the_port(one_thread):
     """tests/test_realread_overfit.py on the port: the joint WaveNet-CTC
     (256 levels, 32 channels, 3 + 6 blocks, pool 1; Adam 2e-3) on the
@@ -277,7 +264,7 @@ def _record(calls, fn):
     return wrapped
 
 
-def test_train_then_evaluate_on_levels_batches(tmp_path, reads, capsys):
+def test_train_then_evaluate_on_levels_batches(tmp_path, reads, capsys, one_thread):
     """`python -m wavenet_speech_tpu_torch.cli train` twice (10 steps, then
     resumed to 20) and `evaluate` with --device cpu on an ecoli-style hdf5
     config: K=5 steps a call on (5, 3, 300) int32 levels, two fixed

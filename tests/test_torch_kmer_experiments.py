@@ -26,6 +26,7 @@ import optax
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (a fixture)
 from wavenet_speech_tpu_torch import bridge
 from wavenet_speech_tpu_torch.examples import kmer_experiments as ke
 
@@ -34,19 +35,7 @@ import kmer_experiments as jke  # noqa: E402
 
 LOSS_RTOL = 1e-4
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch on one intra-op thread: these loops take small steps, and
-    beside the parallel suite's other workers torch's 8 threads a process
-    made one of them 150x slower (tests/test_torch_hdf5.py has the same
-    fixture for the same reason)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_nts_to_kmers_matches_jax(rng):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (a fixture)
 from wavenet_speech_tpu.data import RawGaussianModelLoader as JRawGaussian
 from wavenet_speech_tpu.data.common import Batch as JBatch
 from wavenet_speech_tpu.data.raw_signal import RawSignalGenerator as JRawSignal
@@ -114,7 +115,7 @@ def _jax_float64_losses(jenc, jparams, jb, steps):
     return np.array(losses)
 
 
-def test_pretrain_ctc_matches_jax_and_loss_falls(monkeypatch):
+def test_pretrain_ctc_matches_jax_and_loss_falls(monkeypatch, one_thread):
     """From JAX's init (PRNGKey(0)): the first loss equals JAX's, the first
     3 lie within SENS_FACTOR x JAX float32's distance from float64 (module
     docstring); then the JAX test's own property on the port: over 60 steps

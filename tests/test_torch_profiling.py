@@ -42,8 +42,8 @@ def test_mfu_is_jax_scaled_by_the_peaks(dtype):
 
 
 def test_peaks_are_the_h100_data_sheet_values():
-    """chip_smoke.py's bounds read these; PERF.md's bounds were computed
-    with them."""
+    """mfu reads the float32 and bf16 peaks; PERF.md's bounds were
+    computed with all three."""
     assert profiling.H100_PEAK_TFLOPS == {"bf16": 989.0, "f32": 67.0}
     assert profiling.H100_TF32_PEAK_TFLOPS == 495.0
     assert profiling.H100_HBM_BYTES_PER_S == 3.35e12

@@ -16,7 +16,8 @@ running statistics (``Model.eval_base()``). ``Dataset`` takes every
 datatype of the JAX facade but ``raw-hdf5`` (unsupported there too):
 ``hdf5`` reads real reads through ``data.hdf5.QueueLoader``'s producer
 threads, and ``close()`` stops them. ``Decoder``'s beam runs on the card
-(B6) or in numpy; the host C++ engine is not ported (ROADMAP A10).
+(B6), in numpy, or on the host C++ engine (``Decoder(engine="native")``,
+``native/ctc_beam.py``).
 """
 from __future__ import annotations
 

@@ -4,9 +4,9 @@ step timer that synchronises by reading a value back, a model-FLOPs
 estimator of a conv stack, and MFU against the card's peaks.
 
 The peaks are the NVIDIA H100 SXM data sheet's at a 700 W power limit, the
-card the port's kernels are written for; this module is their one source
-(chip_smoke.py's bounds read them from here). A card set below 700 W runs
-slower under load, so an MFU is reported beside the card's power limit.
+card the port's kernels are written for; this module is the port's one
+source of them. A card set below 700 W runs slower under load, so an MFU is
+reported beside the card's power limit.
 """
 from __future__ import annotations
 
