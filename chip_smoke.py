@@ -4316,7 +4316,8 @@ def main() -> int:
                         device=dev)
     greedy = Basecaller(model, beam_width=0, logit_length_fn=lambda l: l // POOL,
                         device=dev)
-    x = torch.from_numpy(caller._bucket(reads)).to(dev)    # (8, 4608, 256)
+    x = torch.from_numpy(np.pad(reads, ((0, 0), (0, -L % caller.pad_to_multiple), (0, 0)))
+                         ).to(dev)    # (8, 4608, 256)
     S = x.shape[1]
     lengths = torch.full((B,), L // POOL, dtype=torch.int32, device=dev)
     log(f"model: WaveNet {len(WAVENET_DILS)} blocks + classifier {len(CLASSIFIER_DILS)} "

@@ -1,7 +1,8 @@
 """The port's Basecaller (beam W=7, and greedy) against the JAX Basecaller
 on the same small wavenet-ctc model and the same one-hot signals, with
 true lengths and a logit_length_fn, on the CPU. Decoded strings must be
-equal, beam scores within 1e-3."""
+equal, beam scores within 1e-3. The staging buffer a Basecaller reuses
+across calls must hand the model the bits a fresh one does."""
 import jax
 import numpy as np
 import pytest
@@ -54,6 +55,14 @@ def test_basecaller_matches_jax(pair, beam_width, with_lengths):
     np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-3)
 
 
+def _record_calls(model):
+    """(the model's input, its logits) of each forward, copied; and the
+    hook's handle."""
+    seen = []
+    return seen, model.register_forward_hook(
+        lambda mod, args, out: seen.append((args[0].clone(), out.clone())))
+
+
 def test_bucket_padding_is_not_decoded(pair):
     """A signal of 150 (bucketed to 192) decodes as the same signal padded
     by hand with its true lengths given."""
@@ -61,11 +70,48 @@ def test_bucket_padding_is_not_decoded(pair):
     caller = Basecaller(tm, beam_width=7, pad_to_multiple=64, device="cpu",
                         logit_length_fn=lambda l: l // 4)
     sig = _signals(B=2)
-    a, sa = caller(sig)
+    seen, hook = _record_calls(tm)
+    try:
+        a, sa = caller(sig)
+    finally:
+        hook.remove()
     padded = np.pad(sig, ((0, 0), (0, 42), (0, 0)))
     b, sb = caller(padded, lengths=np.full((2,), 150))
     assert a == b and sa == sb
-    assert caller._bucket(sig).shape == (2, 192, LEVELS)
+    assert torch.equal(seen[0][0], torch.from_numpy(padded))
+
+
+@pytest.mark.parametrize("beam_width", [7, 0])
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_staging_buffer_is_reused(pair, beam_width, with_lengths):
+    """Long (bucket 256), short (128) and long again through one
+    Basecaller: each call hands the model the signal, then zeros to the
+    bucket (a longer call's rows stay in the buffer), and gives a fresh
+    Basecaller's logits, strings and scores bit for bit; the staging
+    buffer is allocated once. A call past its capacity grows it."""
+    _, _, tm = pair
+    kw = dict(beam_width=beam_width, pad_to_multiple=128, device="cpu",
+              logit_length_fn=lambda l: l // 4)
+    caller = Basecaller(tm, **kw)
+    seen, hook = _record_calls(tm)
+    try:
+        for i, (B, L, allocs) in enumerate([(3, 250, 1), (3, 100, 1), (3, 200, 1),
+                                            (4, 250, 2)]):
+            sig = _signals(B=B, L=L, seed=i)
+            lengths = np.linspace(L, L // 2, B).astype(np.int32) if with_lengths else None
+            got = caller(sig, lengths)
+            want = Basecaller(tm, **kw)(sig, lengths)
+            (x, logits), (_, fresh_logits) = seen[-2:]
+            Lp = -(-L // 128) * 128
+            assert x.shape == (B, Lp, LEVELS)
+            assert torch.equal(x[:, :L], torch.from_numpy(sig))
+            assert not x[:, L:].any()
+            assert not caller._stage[:B * Lp * LEVELS].view(B, Lp, LEVELS)[:, L:].any()
+            assert torch.equal(logits, fresh_logits)
+            assert got == want
+            assert (caller.staged_calls, caller.staging_allocs) == (i + 1, allocs)
+    finally:
+        hook.remove()
 
 
 def test_basecaller_has_no_silent_cpu_default(pair):

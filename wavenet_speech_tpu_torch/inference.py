@@ -41,6 +41,11 @@ from wavenet_speech_tpu_torch.utils.device import resolve_device
 from wavenet_speech_tpu_torch.utils.profiling import span
 
 
+# The staging copy's piece: the host fills the next piece while the last
+# one's DMA runs.
+STAGE_PIECE_BYTES = 8 << 20
+
+
 def _params_of(model):
     if hasattr(model, "params"):
         return model.params()
@@ -50,7 +55,8 @@ def _params_of(model):
 @dataclasses.dataclass
 class Basecaller:
     """End-to-end basecalling pipeline around ``model``, a callable
-    (B, L, C) signal -> (B, T, labels) logits such as ``facade.Model``."""
+    (B, L, C) signal -> (B, T, labels) logits such as ``facade.Model``.
+    It serves one call at a time: the calls share its staging buffer."""
 
     model: Callable[[torch.Tensor], torch.Tensor]
     beam_width: int = 7                 # 0 -> greedy
@@ -61,9 +67,15 @@ class Basecaller:
     logit_length_fn: Optional[Callable] = None  # input lens -> logit lens
     device: Optional[torch.device] = None       # default: cuda, or raise
     saturated_chunks: int = dataclasses.field(default=0, init=False)  # last long batch's
+    staged_calls: int = dataclasses.field(default=0, init=False)    # calls through the staging
+    staging_allocs: int = dataclasses.field(default=0, init=False)  # its (re)allocations
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self._stage = None          # flat float32 staging buffer, pinned on a card
+        self._stage_read = None     # event of the last DMA out of it
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
 
     @classmethod
     def from_checkpoint(cls, model, ckpt_path: str, params_like=None, **kw) -> "Basecaller":
@@ -80,27 +92,65 @@ class Basecaller:
             model.load_state_dict(params)
         return caller
 
-    def _bucket(self, x: np.ndarray) -> np.ndarray:
-        m = self.pad_to_multiple
-        L = x.shape[1]
-        Lp = int(np.ceil(L / m)) * m
-        if Lp == L:
-            return x
-        return np.pad(x, ((0, 0), (0, Lp - L), (0, 0)))
+    def _stage_to_device(self, raw: np.ndarray, Lp: int) -> torch.Tensor:
+        """raw (B, L, C) float32 -> (B, Lp, C) on the device: raw's values,
+        then zeros in [L, Lp). The rows go through the Basecaller's staging
+        buffer, which is reused across calls and grown when a call needs
+        more (``staging_allocs`` counts that): a piece of rows is copied in
+        (torch's parallel copy), its bucket tail zeroed (a longer earlier
+        call left data there), and its copy to the device queued. On a card
+        the buffer is pinned and the copies run on a copy stream, so the
+        DMA of one piece overlaps the host's copy of the next; the current
+        stream waits for them, and the next call waits for the last of
+        them before it writes the buffer."""
+        B, L, C = raw.shape
+        cuda = self._copy_stream is not None
+        if self._stage_read is not None:
+            self._stage_read.synchronize()
+        n = B * Lp * C
+        if self._stage is None or self._stage.numel() < n:
+            self._stage = torch.empty(n, dtype=torch.float32, pin_memory=cuda)
+            self.staging_allocs += 1
+        self.staged_calls += 1
+        stage = self._stage[:n].view(B, Lp, C)
+        src = torch.from_numpy(raw)
+        x = torch.empty((B, Lp, C), dtype=torch.float32, device=self.device)
+        rows = max(1, STAGE_PIECE_BYTES // (Lp * C * 4))
+        if cuda:
+            self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._copy_stream):   # a no-op without one
+            for r in range(0, B, rows):
+                piece = slice(r, r + rows)
+                stage[piece, :L].copy_(src[piece])
+                stage[piece, L:].zero_()
+                x[piece].copy_(stage[piece], non_blocking=cuda)
+        if cuda:
+            self._stage_read = self._copy_stream.record_event()
+            torch.cuda.current_stream(self.device).wait_event(self._stage_read)
+        return x
 
     def __call__(self, signal, lengths=None) -> Tuple[List[str], List[float]]:
         """signal (B, L, C) -> (sequences, scores). lengths: optional (B,)
         true signal lengths, default L; frames past them (and the bucket
         padding) are not decoded.
 
+        The signal reaches the device through a staging buffer the
+        Basecaller keeps (``_stage_to_device``): pinned and copied
+        asynchronously on a card, zero-padded to the bucket of
+        ``pad_to_multiple`` samples. ``staged_calls`` counts the calls
+        through it, ``staging_allocs`` its (re)allocations. The logit
+        lengths go to the device without a wait too, so the beam is queued
+        behind the forward.
+
         Under an active ``torch.profiler`` the call marks its phases with
-        ``utils.profiling.span``, in order: ``basecall.bucket`` (the pad
-        and the lengths), ``basecall.to_device`` (the copy),
+        ``utils.profiling.span``, in order: ``basecall.bucket`` (the bucket
+        and the lengths), ``basecall.to_device`` (the copies into the
+        staging buffer and the queued copies to the device),
         ``basecall.forward``, ``basecall.decode`` (the beam or the argmax)
         and ``basecall.strings`` (the readbacks and the strings)."""
         with span("basecall.bucket"):
-            raw = np.asarray(signal, np.float32)
-            x = self._bucket(raw)
+            raw = np.ascontiguousarray(signal, np.float32)
+            Lp = -(-raw.shape[1] // self.pad_to_multiple) * self.pad_to_multiple
             if lengths is None:
                 lengths = np.full((raw.shape[0],), raw.shape[1], np.int32)
             lengths = np.asarray(lengths, np.int32)
@@ -108,7 +158,7 @@ class Basecaller:
                           if self.logit_length_fn is not None else lengths)
         with torch.inference_mode():
             with span("basecall.to_device"):
-                x_dev = torch.from_numpy(x).to(self.device)
+                x_dev = self._stage_to_device(raw, Lp)
             with span("basecall.forward"):
                 logits = self.model(x_dev)
             if self.beam_width <= 0:
@@ -120,10 +170,13 @@ class Basecaller:
                                                        blank=self.blank)), \
                         [0.0] * labels.shape[0]
             with span("basecall.decode"):
+                lens = torch.from_numpy(logit_lens)
+                if self._copy_stream is not None:
+                    lens = lens.pin_memory()
                 prefixes, plens, scores = ctc_beam_search(
-                    logits, lengths=torch.from_numpy(logit_lens),
+                    logits, lengths=lens.to(self.device, non_blocking=True),
                     beam_width=self.beam_width, blank=self.blank,
-                    max_label_len=self.max_label_len or x.shape[1],
+                    max_label_len=self.max_label_len or Lp,
                     prune=self.cutoff_top_n)
         with span("basecall.strings"):
             best = prefixes[:, 0].cpu().numpy()
